@@ -1,9 +1,11 @@
 // Grid-Potts colour-phase kernels for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernels of lp_mp_tpu/ops/pallas_grid.py:
-//   grid_phase_kernel  <- _phase_kernel_v2 (:161, wrapper phase_update_v2);
-//                         same math as the v1 _phase_kernel (:72)
-//   grid_round_kernel  <- _round_kernel_v2 (:303, wrapper round_update_v2)
+//   grid_phase_kernel<false>  <- _phase_kernel_v2 (:161, wrapper phase_update_v2);
+//                                same math as the v1 _phase_kernel (:72)
+//   grid_round_kernel<NR, false> <- _round_kernel_v2 (:303, wrapper round_update_v2)
+//   grid_phase_kernel<true>   <- _phase_kernel_sharded (:443, wrapper phase_update_sharded)
+//   grid_round_kernel<NR, true>  <- _round_kernel_sharded (:536, wrapper round_update_sharded)
 //
 // Dense layout, float32, labels outermost (see ops/grid_kernels.py):
 //   u [L,H,W]; hm1/hm2 [L,H,W-1], the two slots of h-edge (r,c)-(r,c+1),
@@ -13,6 +15,23 @@
 // Every slot has one owner cell, so a thread that updates a cell writes
 // that cell's u and its 2-4 own slots, and every output element is written
 // exactly once.  Outputs go to separate buffers (out of place).
+//
+// Sharded layout (one shard of parallel/grid.py): a window of n rows, global
+// rows [row0, row0 + n) of an H-row grid, with every slot stored at its
+// owner's row: u, hm1, hm2 as above; vm1 [L,n,W] row r holds the slot of the
+// edge below r; vm2 [L,n,W] row r holds the slot of the edge above r; hc
+// [n,W-1]; vc [n,W] row r is the cost of the edge below r.  Rows [-kSlab, 0)
+// and [n, n + kSlab) come from two slabs of kSlab rows per label, the
+// neighbour shards' boundary rows (copies, or views with their own label
+// stride).  Global rows >= H are inert: they hold zeros, have no edges, and
+// the kernels write zeros there, as they do into slots of absent edges.  The geometry (colour, degree, which edges exist) comes
+// from the global row, never from the window's bounds.
+//
+// Both layouts go through the same kernel bodies: a `Grid` names each
+// array's rows, and `row<kSharded>` finds window row r of an array (the dense
+// vm2 is read with a shift of one row, since its row r-1 holds the slot that
+// cell r owns).  So the sharded kernels round exactly like the dense ones,
+// and a shard's result equals the matching rows of the dense result.
 //
 // What bounds them on the H100: device-memory bandwidth.  A phase reads and
 // writes the five state arrays and reads the two cost arrays (about 168 MB
@@ -35,7 +54,9 @@
 // a cell's phase-k update reads its neighbours' slots from phase k-1, so the
 // halo cells go stale from the outside in, and after P phases the centre is
 // still exact.  Cells on the true grid edge lose nothing (missing edges do
-// not exist).  Costs are read through the read-only cache.
+// not exist).  In a shard, rows beyond the slabs are loaded as absent: they
+// lie more than P <= kSlab rows from the window, so their staleness never
+// reaches it.  Costs are read through the read-only cache.
 // Tile: T = 16 while the tile's shared memory, 5*L*S*S*4 bytes, stays within
 // 96 KB (two blocks per SM), else T = 8; L above kMaxRoundLabels is refused.
 // At L=4: NR=2 gives S=24, 46 KB and 2.25x recomputed cells (S*S / T*T);
@@ -52,7 +73,58 @@ namespace {
 
 constexpr int kMaxRoundLabels = 32;
 constexpr int kRoundSmemBudget = 96 * 1024;
+constexpr int kSlab = 4;  // slab rows per side; covers the round kernel's halo P <= 4
 constexpr float kBig = 3e38f;
+
+// One input array's rows, addressed by window row r.
+struct Rows {
+  const float* win;  // element (l, r, c) at win[l * ls + (r - shift) * width + c]
+  const float* top;  // sharded: rows [-kSlab, 0), kSlab rows of `width` floats per label
+  const float* bot;  // sharded: rows [n, n + kSlab)
+  long ls;           // label stride of win
+  long tls, bls;     // label strides of top and bot (slabs may be views of a neighbour)
+  int width;
+  int shift;         // 1 for the dense vm2, else 0
+};
+
+struct OutRows {
+  float* p;  // element (l, r, c) at p[l * ls + (r - shift) * width + c]
+  long ls;
+  int width;
+  int shift;
+};
+
+struct Grid {
+  Rows u, hm1, hm2, vm1, vm2, hc, vc;  // vm2 row r: the slot of edge (r-1, r) owned by r
+  OutRows u_o, hm1_o, hm2_o, vm1_o, vm2_o;
+  int L, n, row0, H, W;  // window rows [0, n) are global rows [row0, row0 + n)
+};
+
+struct RowPtr {
+  const float* p;  // the row's column 0 at label 0
+  long ls;         // label stride
+};
+
+// Whether window row r can be read: the window itself, and in a shard the slabs.
+template <bool kSharded>
+__device__ __forceinline__ bool readable(const Grid& g, int r) {
+  return kSharded ? (r >= -kSlab && r < g.n + kSlab) : (r >= 0 && r < g.n);
+}
+
+template <bool kSharded>
+__device__ __forceinline__ RowPtr row(const Rows& a, int n, int r) {
+  if (kSharded) {
+    if (r < 0) return {a.top + (long)(r + kSlab) * a.width, a.tls};
+    if (r >= n) return {a.bot + (long)(r - n) * a.width, a.bls};
+  }
+  return {a.win + (long)(r - a.shift) * a.width, a.ls};
+}
+
+__device__ __forceinline__ float at(RowPtr p, int l, int c) { return __ldg(p.p + l * p.ls + c); }
+
+__device__ __forceinline__ float* out_at(const OutRows& o, int l, int r, int c) {
+  return o.p + l * o.ls + (long)(r - o.shift) * o.width + c;
+}
 
 // Min statistics of a Potts edge's "other" slot over the labels: the min m
 // and the value min_except takes at the min's positions (the second min, or
@@ -86,62 +158,85 @@ __device__ __forceinline__ float potts_marg(float own, float other, MinExcept st
   return own + fminf(other, me + cost);
 }
 
+// Zeros into every slot a window cell owns (sharded: an inert row).
+__device__ __forceinline__ void write_zero_cell(const Grid& g, int r, int c) {
+  for (int l = 0; l < g.L; ++l) {
+    *out_at(g.u_o, l, r, c) = 0.0f;
+    if (c < g.W - 1) *out_at(g.hm1_o, l, r, c) = 0.0f;
+    if (c > 0) *out_at(g.hm2_o, l, r, c - 1) = 0.0f;
+    *out_at(g.vm1_o, l, r, c) = 0.0f;
+    *out_at(g.vm2_o, l, r, c) = 0.0f;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // phase kernel
 // ---------------------------------------------------------------------------
-__global__ void grid_phase_kernel(const float* __restrict__ u, const float* __restrict__ hm1,
-                                  const float* __restrict__ hm2, const float* __restrict__ vm1,
-                                  const float* __restrict__ vm2, const float* __restrict__ hc,
-                                  const float* __restrict__ vc, float* __restrict__ u_o,
-                                  float* __restrict__ hm1_o, float* __restrict__ hm2_o,
-                                  float* __restrict__ vm1_o, float* __restrict__ vm2_o, int L,
-                                  int H, int W, int recv_color, int send_color, float leave) {
+template <bool kSharded>
+__global__ void grid_phase_kernel(const Grid g, int recv_color, int send_color, float leave) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  if (r >= H || c >= W) return;
-  const long su = (long)H * W, sh = (long)H * (W - 1), sv = (long)(H - 1) * W;
-  const int color = ((r + c) & 1) ? 2 : 1;
+  const int L = g.L, H = g.H, W = g.W, n = g.n;
+  if (r >= n || c >= W) return;
+  const int gr = g.row0 + r;  // global row
+  if (kSharded && gr >= H) {
+    write_zero_cell(g, r, c);
+    return;
+  }
+  const int color = ((gr + c) & 1) ? 2 : 1;
   const bool recv = recv_color == color;
-  const bool right = c < W - 1, left = c > 0, down = r < H - 1, up = r > 0;
+  const bool right = c < W - 1, left = c > 0, down = gr < H - 1, up = gr > 0;
   const float deg = (float)right + (float)left + (float)down + (float)up;
   const float omega = (send_color == color) ? 1.0f / fmaxf(deg + leave, 1.0f) : 0.0f;
 
-  const long iu = (long)r * W + c;           // cell
-  const long ir = (long)r * (W - 1) + c;     // h-edge to the right
-  const long il = ir - 1;                    // h-edge to the left
-  const long id = (long)r * W + c;           // v-edge below
-  const long iup = id - W;                   // v-edge above
-  const float cr = right ? hc[ir] : 0.0f, cl = left ? hc[il] : 0.0f;
-  const float cd = down ? vc[id] : 0.0f, cu = up ? vc[iup] : 0.0f;
+  const RowPtr ur = row<kSharded>(g.u, n, r), h1 = row<kSharded>(g.hm1, n, r),
+               h2 = row<kSharded>(g.hm2, n, r), v1 = row<kSharded>(g.vm1, n, r);
+  RowPtr v2_dn{nullptr, 0}, v2_own{nullptr, 0}, v1_up{nullptr, 0};
+  if (down) v2_dn = row<kSharded>(g.vm2, n, r + 1);  // edge below, slot of the cell below
+  if (up) {
+    v2_own = row<kSharded>(g.vm2, n, r);     // edge above, own slot
+    v1_up = row<kSharded>(g.vm1, n, r - 1);  // edge above, slot of the cell above
+  }
+  const float cr = right ? at(row<kSharded>(g.hc, n, r), 0, c) : 0.0f;
+  const float cl = left ? at(row<kSharded>(g.hc, n, r), 0, c - 1) : 0.0f;
+  const float cd = down ? at(row<kSharded>(g.vc, n, r), 0, c) : 0.0f;
+  const float cu = up ? at(row<kSharded>(g.vc, n, r - 1), 0, c) : 0.0f;
 
   MinExcept st_r{0.0f, 0.0f}, st_l{0.0f, 0.0f}, st_d{0.0f, 0.0f}, st_u{0.0f, 0.0f};
   if (recv) {
-    if (right) st_r = min_except_stats(hm2 + ir, sh, L);
-    if (left) st_l = min_except_stats(hm1 + il, sh, L);
-    if (down) st_d = min_except_stats(vm2 + id, sv, L);
-    if (up) st_u = min_except_stats(vm1 + iup, sv, L);
+    if (right) st_r = min_except_stats(h2.p + c, h2.ls, L);
+    if (left) st_l = min_except_stats(h1.p + c - 1, h1.ls, L);
+    if (down) st_d = min_except_stats(v2_dn.p + c, v2_dn.ls, L);
+    if (up) st_u = min_except_stats(v1_up.p + c, v1_up.ls, L);
   }
   for (int l = 0; l < L; ++l) {
-    const long lu = l * su, lh = l * sh, lv = l * sv;
-    float uu = u[lu + iu];
+    float uu = at(ur, l, c);
     float own_r = 0.0f, own_l = 0.0f, own_d = 0.0f, own_u = 0.0f;
     float mr = 0.0f, ml = 0.0f, md = 0.0f, mu = 0.0f;
-    if (right) own_r = hm1[lh + ir];
-    if (left) own_l = hm2[lh + il];
-    if (down) own_d = vm1[lv + id];
-    if (up) own_u = vm2[lv + iup];
+    if (right) own_r = at(h1, l, c);
+    if (left) own_l = at(h2, l, c - 1);
+    if (down) own_d = at(v1, l, c);
+    if (up) own_u = at(v2_own, l, c);
     if (recv) {  // same order of adds as the plain version
-      if (right) { mr = potts_marg(own_r, hm2[lh + ir], st_r, cr, L); uu += mr; }
-      if (left) { ml = potts_marg(own_l, hm1[lh + il], st_l, cl, L); uu += ml; }
-      if (down) { md = potts_marg(own_d, vm2[lv + id], st_d, cd, L); uu += md; }
-      if (up) { mu = potts_marg(own_u, vm1[lv + iup], st_u, cu, L); uu += mu; }
+      if (right) { mr = potts_marg(own_r, at(h2, l, c), st_r, cr, L); uu += mr; }
+      if (left) { ml = potts_marg(own_l, at(h1, l, c - 1), st_l, cl, L); uu += ml; }
+      if (down) { md = potts_marg(own_d, at(v2_dn, l, c), st_d, cd, L); uu += md; }
+      if (up) { mu = potts_marg(own_u, at(v1_up, l, c), st_u, cu, L); uu += mu; }
     }
     const float d = __fmul_rn(uu, omega);
-    u_o[lu + iu] = uu * (1.0f - __fmul_rn(omega, deg));
-    if (right) hm1_o[lh + ir] = (own_r - mr) + d;
-    if (left) hm2_o[lh + il] = (own_l - ml) + d;
-    if (down) vm1_o[lv + id] = (own_d - md) + d;
-    if (up) vm2_o[lv + iup] = (own_u - mu) + d;
+    *out_at(g.u_o, l, r, c) = uu * (1.0f - __fmul_rn(omega, deg));
+    if (right) *out_at(g.hm1_o, l, r, c) = (own_r - mr) + d;
+    if (left) *out_at(g.hm2_o, l, r, c - 1) = (own_l - ml) + d;
+    if (down) {
+      *out_at(g.vm1_o, l, r, c) = (own_d - md) + d;
+    } else if (kSharded) {
+      *out_at(g.vm1_o, l, r, c) = 0.0f;
+    }
+    if (up) {
+      *out_at(g.vm2_o, l, r, c) = (own_u - mu) + d;
+    } else if (kSharded) {
+      *out_at(g.vm2_o, l, r, c) = 0.0f;
+    }
   }
 }
 
@@ -161,15 +256,11 @@ inline size_t round_smem_bytes(int L, int nr, int T) {
   return 5 * (size_t)L * S * S * sizeof(float);
 }
 
-template <int NR>
-__global__ void grid_round_kernel(const float* __restrict__ u, const float* __restrict__ hm1,
-                                  const float* __restrict__ hm2, const float* __restrict__ vm1,
-                                  const float* __restrict__ vm2, const float* __restrict__ hc,
-                                  const float* __restrict__ vc, float* __restrict__ u_o,
-                                  float* __restrict__ hm1_o, float* __restrict__ hm2_o,
-                                  float* __restrict__ vm1_o, float* __restrict__ vm2_o, int L,
-                                  int H, int W, int T) {
+template <int NR, bool kSharded>
+__global__ void grid_round_kernel(const Grid g, int T) {
   constexpr int P = round_halo(NR);
+  static_assert(P <= kSlab, "the slabs cover the round kernel's halo");
+  const int L = g.L, H = g.H, W = g.W, n = g.n;
   const int S = T + 2 * P;  // even: T and P are
   const int plane = S * S;
   extern __shared__ float smem[];
@@ -179,26 +270,33 @@ __global__ void grid_round_kernel(const float* __restrict__ u, const float* __re
   float* s_v1 = s_h2 + L * plane;
   float* s_v2 = s_v1 + L * plane;
 
-  // tile origin in grid coordinates (may be negative: those cells are absent)
+  // tile origin in window coordinates (may lie outside: those cells are absent)
   const int R0 = blockIdx.y * T - P, C0 = blockIdx.x * T - P;
-  const long gu = (long)H * W, gh = (long)H * (W - 1), gv = (long)(H - 1) * W;
 
   // load cells and edge slots; smem edge (i,j) is the grid edge leaving cell
   // (R0+i, C0+j) to the right (h) or downwards (v)
-  for (int k = threadIdx.x; k < L * plane; k += blockDim.x) {
-    const int l = k / plane, rem = k - l * plane, i = rem / S, j = rem - i * S;
-    const int r = R0 + i, c = C0 + j;
-    const bool in_r = r >= 0 && r < H, in_c = c >= 0 && c < W;
-    const bool he = in_r && c >= 0 && c < W - 1;
-    const bool ve = r >= 0 && r < H - 1 && in_c;
-    const long gcell = l * gu + (long)r * W + c;
-    const long ghe = l * gh + (long)r * (W - 1) + c;
-    const long gve = l * gv + (long)r * W + c;
-    s_u[k] = (in_r && in_c) ? u[gcell] : 0.0f;
-    s_h1[k] = he ? hm1[ghe] : 0.0f;
-    s_h2[k] = he ? hm2[ghe] : 0.0f;
-    s_v1[k] = ve ? vm1[gve] : 0.0f;
-    s_v2[k] = ve ? vm2[gve] : 0.0f;
+  // (one thread per tile position, labels in the inner loop, so each row
+  // lookup serves all L labels)
+  for (int k = threadIdx.x; k < plane; k += blockDim.x) {
+    const int i = k / S, j = k - i * S;
+    const int r = R0 + i, c = C0 + j, gr = g.row0 + r;
+    const bool in_r = gr >= 0 && gr < H && readable<kSharded>(g, r), in_c = c >= 0 && c < W;
+    const bool cell = in_r && in_c, he = in_r && c >= 0 && c < W - 1;
+    const bool ve = cell && gr < H - 1, ve2 = ve && readable<kSharded>(g, r + 1);
+    const RowPtr none{nullptr, 0};
+    const RowPtr pu = cell ? row<kSharded>(g.u, n, r) : none;
+    const RowPtr ph1 = he ? row<kSharded>(g.hm1, n, r) : none;
+    const RowPtr ph2 = he ? row<kSharded>(g.hm2, n, r) : none;
+    const RowPtr pv1 = ve ? row<kSharded>(g.vm1, n, r) : none;
+    const RowPtr pv2 = ve2 ? row<kSharded>(g.vm2, n, r + 1) : none;
+    for (int l = 0; l < L; ++l) {
+      const int o = l * plane + k;
+      s_u[o] = cell ? at(pu, l, c) : 0.0f;
+      s_h1[o] = he ? at(ph1, l, c) : 0.0f;
+      s_h2[o] = he ? at(ph2, l, c) : 0.0f;
+      s_v1[o] = ve ? at(pv1, l, c) : 0.0f;
+      s_v2[o] = ve2 ? at(pv2, l, c) : 0.0f;
+    }
   }
   __syncthreads();
 
@@ -209,21 +307,22 @@ __global__ void grid_round_kernel(const float* __restrict__ u, const float* __re
     for (int k = threadIdx.x; k < S * half; k += blockDim.x) {
       const int i = k / half;
       const int j0 = 2 * (k - i * half);
-      const int r = R0 + i;
-      const int j = j0 + ((parity ^ (r + C0)) & 1);  // (r + C0 + j) % 2 == parity
+      const int r = R0 + i, gr = g.row0 + r;
+      const int j = j0 + ((parity ^ (gr + C0)) & 1);  // (gr + C0 + j) % 2 == parity
       const int c = C0 + j;
-      if (r < 0 || r >= H || c < 0 || c >= W) continue;
+      if (gr < 0 || gr >= H || c < 0 || c >= W || !readable<kSharded>(g, r)) continue;
       const int s = i * S + j;
       // edges present in the tile; a tile-border cell that misses one is
       // stale after this phase, which the halo absorbs
       const bool right = c < W - 1, left = c > 0 && j > 0;
-      const bool down = r < H - 1, up = r > 0 && i > 0;
-      const float deg = (float)(c < W - 1) + (float)(c > 0) + (float)(r < H - 1) + (float)(r > 0);
+      const bool down = gr < H - 1, up = gr > 0 && i > 0 && readable<kSharded>(g, r - 1);
+      const float deg =
+          (float)(c < W - 1) + (float)(c > 0) + (float)(gr < H - 1) + (float)(gr > 0);
       const float omega = 1.0f / fmaxf(deg, 1.0f);
-      const float cr = right ? __ldg(hc + (long)r * (W - 1) + c) : 0.0f;
-      const float cl = left ? __ldg(hc + (long)r * (W - 1) + c - 1) : 0.0f;
-      const float cd = down ? __ldg(vc + (long)r * W + c) : 0.0f;
-      const float cu = up ? __ldg(vc + (long)(r - 1) * W + c) : 0.0f;
+      const float cr = right ? at(row<kSharded>(g.hc, n, r), 0, c) : 0.0f;
+      const float cl = left ? at(row<kSharded>(g.hc, n, r), 0, c - 1) : 0.0f;
+      const float cd = down ? at(row<kSharded>(g.vc, n, r), 0, c) : 0.0f;
+      const float cu = up ? at(row<kSharded>(g.vc, n, r - 1), 0, c) : 0.0f;
       MinExcept st_r{0.0f, 0.0f}, st_l{0.0f, 0.0f}, st_d{0.0f, 0.0f}, st_u{0.0f, 0.0f};
       if (right) st_r = min_except_stats(s_h2 + s, plane, L);
       if (left) st_l = min_except_stats(s_h1 + s - 1, plane, L);
@@ -248,37 +347,131 @@ __global__ void grid_round_kernel(const float* __restrict__ u, const float* __re
     __syncthreads();
   }
 
-  // write the centre: each cell's u and own slots
+  // write the centre: each cell's u and own slots (zeros for an inert row
+  // and for slots of absent edges in a shard)
   const int tt = T * T;
-  for (int k = threadIdx.x; k < L * tt; k += blockDim.x) {
-    const int l = k / tt, rem = k - l * tt;
-    const int i = rem / T + P, j = rem % T + P;
-    const int r = R0 + i, c = C0 + j;
-    if (r >= H || c >= W) continue;
-    const int o = l * plane + i * S + j;
-    u_o[l * gu + (long)r * W + c] = s_u[o];
-    if (c < W - 1) hm1_o[l * gh + (long)r * (W - 1) + c] = s_h1[o];
-    if (c > 0) hm2_o[l * gh + (long)r * (W - 1) + c - 1] = s_h2[o - 1];
-    if (r < H - 1) vm1_o[l * gv + (long)r * W + c] = s_v1[o];
-    if (r > 0) vm2_o[l * gv + (long)(r - 1) * W + c] = s_v2[o - S];
+  for (int k = threadIdx.x; k < tt; k += blockDim.x) {
+    const int i = k / T + P, j = k % T + P;
+    const int r = R0 + i, c = C0 + j, gr = g.row0 + r;
+    if (r >= n || c >= W) continue;
+    const bool live = !kSharded || gr < H;
+    const bool right = c < W - 1, left = c > 0;
+    const bool down = live && gr < H - 1, up = live && gr > 0;
+    float* ou = out_at(g.u_o, 0, r, c);
+    float* oh1 = right ? out_at(g.hm1_o, 0, r, c) : nullptr;
+    float* oh2 = left ? out_at(g.hm2_o, 0, r, c - 1) : nullptr;
+    float* ov1 = (down || kSharded) ? out_at(g.vm1_o, 0, r, c) : nullptr;
+    float* ov2 = (up || kSharded) ? out_at(g.vm2_o, 0, r, c) : nullptr;
+    const int s = i * S + j;
+    for (int l = 0; l < L; ++l) {
+      const int o = l * plane + s;
+      ou[l * g.u_o.ls] = live ? s_u[o] : 0.0f;
+      if (right) oh1[l * g.hm1_o.ls] = live ? s_h1[o] : 0.0f;
+      if (left) oh2[l * g.hm2_o.ls] = live ? s_h2[o - 1] : 0.0f;
+      if (down || kSharded) ov1[l * g.vm1_o.ls] = down ? s_v1[o] : 0.0f;
+      if (up || kSharded) ov2[l * g.vm2_o.ls] = up ? s_v2[o - S] : 0.0f;
+    }
   }
 }
 
-template <int NR>
-cudaError_t launch_round(const float* const* in, float* const* out, int L, int H, int W,
+template <bool kSharded>
+cudaError_t launch_phase(const Grid& g, int recv_color, int send_color, float leave,
                          cudaStream_t stream) {
-  const int T = round_tile(L, NR);
+  const dim3 block(32, 8);
+  const dim3 grid((g.W + block.x - 1) / block.x, (g.n + block.y - 1) / block.y);
+  grid_phase_kernel<kSharded><<<grid, block, 0, stream>>>(g, recv_color, send_color, leave);
+  return cudaGetLastError();
+}
+
+template <int NR, bool kSharded>
+cudaError_t launch_round(const Grid& g, cudaStream_t stream) {
+  const int T = round_tile(g.L, NR);
   const int S = T + 2 * round_halo(NR);
-  const size_t smem = round_smem_bytes(L, NR, T);
-  cudaError_t err = cudaFuncSetAttribute(grid_round_kernel<NR>,
+  const size_t smem = round_smem_bytes(g.L, NR, T);
+  cudaError_t err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = ((S * S / 2 + 31) / 32) * 32;  // one thread per active cell
-  const dim3 grid((W + T - 1) / T, (H + T - 1) / T);
-  grid_round_kernel<NR><<<grid, threads, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], out[0], out[1], out[2], out[3], out[4],
-      L, H, W, T);
+  const dim3 grid((g.W + T - 1) / T, (g.n + T - 1) / T);
+  grid_round_kernel<NR, kSharded><<<grid, threads, smem, stream>>>(g, T);
   return cudaGetLastError();
+}
+
+template <bool kSharded>
+cudaError_t launch_round_nr(const Grid& g, int n_rounds, cudaStream_t stream) {
+  if (n_rounds == 1) return launch_round<1, kSharded>(g, stream);
+  if (n_rounds == 2) return launch_round<2, kSharded>(g, stream);
+  return cudaErrorInvalidValue;
+}
+
+Rows dense_rows(const float* p, long ls, int width, int shift) {
+  return {p, nullptr, nullptr, ls, 0, 0, width, shift};
+}
+
+OutRows out_rows(float* p, long ls, int width, int shift) { return {p, ls, width, shift}; }
+
+// The dense grid as a window of H rows at row 0.
+Grid dense_grid(const float* u, const float* hm1, const float* hm2, const float* vm1,
+                const float* vm2, const float* hc, const float* vc, float* u_o, float* hm1_o,
+                float* hm2_o, float* vm1_o, float* vm2_o, int L, int H, int W) {
+  const long su = (long)H * W, sh = (long)H * (W - 1), sv = (long)(H - 1) * W;
+  Grid g;
+  g.u = dense_rows(u, su, W, 0);
+  g.hm1 = dense_rows(hm1, sh, W - 1, 0);
+  g.hm2 = dense_rows(hm2, sh, W - 1, 0);
+  g.vm1 = dense_rows(vm1, sv, W, 0);
+  g.vm2 = dense_rows(vm2, sv, W, 1);
+  g.hc = dense_rows(hc, 0, W - 1, 0);
+  g.vc = dense_rows(vc, 0, W, 0);
+  g.u_o = out_rows(u_o, su, W, 0);
+  g.hm1_o = out_rows(hm1_o, sh, W - 1, 0);
+  g.hm2_o = out_rows(hm2_o, sh, W - 1, 0);
+  g.vm1_o = out_rows(vm1_o, sv, W, 0);
+  g.vm2_o = out_rows(vm2_o, sv, W, 1);
+  g.L = L;
+  g.n = H;
+  g.row0 = 0;
+  g.H = H;
+  g.W = W;
+  return g;
+}
+
+// A shard's window.  ptrs: for u, hm1, hm2, vm1, vm2, hc, vc in turn the
+// window, top slab and bottom slab (21 pointers), then the five outputs;
+// slab_ls: the label strides of the 14 slabs in the same order (rows within
+// a slab are contiguous).
+Grid shard_grid(void* const* ptrs, const long long* slab_ls, int L, int n, int W, int row0,
+                int H) {
+  const int widths[7] = {W, W - 1, W - 1, W, W, W - 1, W};
+  Rows in[7];
+  for (int a = 0; a < 7; ++a) {
+    in[a] = {static_cast<const float*>(ptrs[3 * a]), static_cast<const float*>(ptrs[3 * a + 1]),
+             static_cast<const float*>(ptrs[3 * a + 2]), (long)n * widths[a],
+             (long)slab_ls[2 * a], (long)slab_ls[2 * a + 1], widths[a], 0};
+  }
+  OutRows out[5];
+  for (int a = 0; a < 5; ++a) {
+    out[a] = out_rows(static_cast<float*>(ptrs[21 + a]), (long)n * widths[a], widths[a], 0);
+  }
+  Grid g;
+  g.u = in[0];
+  g.hm1 = in[1];
+  g.hm2 = in[2];
+  g.vm1 = in[3];
+  g.vm2 = in[4];
+  g.hc = in[5];
+  g.vc = in[6];
+  g.u_o = out[0];
+  g.hm1_o = out[1];
+  g.hm2_o = out[2];
+  g.vm1_o = out[3];
+  g.vm2_o = out[4];
+  g.L = L;
+  g.n = n;
+  g.row0 = row0;
+  g.H = H;
+  g.W = W;
+  return g;
 }
 
 }  // namespace
@@ -297,12 +490,10 @@ int lpmp_grid_phase_update(const float* u, const float* hm1, const float* hm2, c
   if (L < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const dim3 block(32, 8);
-  const dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-  grid_phase_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, hm1, hm2, vm1, vm2, hc, vc, u_o, hm1_o, hm2_o, vm1_o, vm2_o, L, H, W, recv_color,
-      send_color, leave);
-  return cudaGetLastError();
+  const Grid g = dense_grid(u, hm1, hm2, vm1, vm2, hc, vc, u_o, hm1_o, hm2_o, vm1_o, vm2_o, L,
+                            H, W);
+  return launch_phase<false>(g, recv_color, send_color, leave,
+                             static_cast<cudaStream_t>(stream));
 }
 
 int lpmp_grid_round_update(const float* u, const float* hm1, const float* hm2, const float* vm1,
@@ -312,12 +503,32 @@ int lpmp_grid_round_update(const float* u, const float* hm1, const float* hm2, c
   if (L < 1 || L > kMaxRoundLabels || H < 1 || W < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const float* in[7] = {u, hm1, hm2, vm1, vm2, hc, vc};
-  float* out[5] = {u_o, hm1_o, hm2_o, vm1_o, vm2_o};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_rounds == 1) return launch_round<1>(in, out, L, H, W, s);
-  if (n_rounds == 2) return launch_round<2>(in, out, L, H, W, s);
-  return cudaErrorInvalidValue;
+  const Grid g = dense_grid(u, hm1, hm2, vm1, vm2, hc, vc, u_o, hm1_o, hm2_o, vm1_o, vm2_o, L,
+                            H, W);
+  return launch_round_nr<false>(g, n_rounds, static_cast<cudaStream_t>(stream));
+}
+
+int lpmp_grid_phase_update_sharded(void* const* ptrs, const long long* slab_ls, int L, int n,
+                                   int W, int row0, int H, int recv_color, int send_color,
+                                   float leave, int device, void* stream) {
+  if (L < 1 || n < 1 || W < 1 || row0 < 0 || H < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_phase<true>(shard_grid(ptrs, slab_ls, L, n, W, row0, H), recv_color,
+                            send_color, leave,
+                            static_cast<cudaStream_t>(stream));
+}
+
+int lpmp_grid_round_update_sharded(void* const* ptrs, const long long* slab_ls, int L, int n,
+                                   int W, int row0, int H, int n_rounds, int device,
+                                   void* stream) {
+  if (L < 1 || L > kMaxRoundLabels || n < 1 || W < 1 || row0 < 0 || H < 1) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_round_nr<true>(shard_grid(ptrs, slab_ls, L, n, W, row0, H), n_rounds,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

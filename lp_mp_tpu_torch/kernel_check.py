@@ -1,7 +1,7 @@
 """Each grid kernel against its plain version, on the card.
 
-Shared by ``chip_smoke.py`` (its kernel phase) and
-``tests/test_torch_grid_cuda.py``.  Every launch is synchronised and
+Shared by ``chip_smoke.py`` (its kernel phases), ``tests/test_torch_grid_cuda.py``
+and ``tests/test_torch_parallel_grid_cuda.py``.  Every launch is synchronised and
 compared array by array with the plain torch version on the same inputs;
 the tolerance is ``1e-5 * (1 + max|x|)`` per array, for float32 (the
 kernels round each operation as the plain ops do, so the error is expected
@@ -13,7 +13,10 @@ import numpy as np
 import torch
 
 from .ops.grid_kernels import (STATE_KEYS, phase_update, phase_update_ref,
-                               round_update, round_update_ref)
+                               phase_update_sharded, phase_update_sharded_ref, phase_update_v1,
+                               round_update, round_update_ref, round_update_sharded,
+                               round_update_sharded_ref)
+from .parallel.grid import RowShards
 
 # (H, W, L): ragged shapes around the round kernel's 16-cell tile, and the
 # main path's 1000 x 1000 grid with 4 labels
@@ -24,6 +27,9 @@ CHECK_SHAPES = ((8, 8, 4), (33, 47, 3), (64, 40, 2), (9, 11, 1), (17, 130, 5),
 PHASE_PARAMS = ((2, 2, 0.0), (1, 1, 0.0), (0, 1, 0.0), (2, 0, 0.0),
                 (1, 1, 1.0), (2, 2, 1.0))
 RTOL = 1e-5
+# shard counts of the sharded check: 3 leaves inert rows at the end of the
+# last shard for most shapes
+SHARD_COUNTS = (1, 2, 3, 4)
 
 
 def random_dense_state(H, W, L, seed, ties=False, device="cpu", dtype=torch.float32):
@@ -91,4 +97,65 @@ def check_grid_kernels(device="cuda", shapes=CHECK_SHAPES, seed=0, log=print):
                 err = _compare("round_update", f"{tag} n_rounds={n_rounds}", out, ref, log)
                 worst["round_update"] = max(worst["round_update"], err)
                 state = ref
+    return worst
+
+
+def check_phase_v1(device="cuda", shapes=CHECK_SHAPES, seed=0, log=print):
+    """``phase_update_v1`` (the v1 kernel's int32[3] contract) over every
+    phase tuple against its plain version.  Returns the max abs error."""
+    worst = 0.0
+    for i, (H, W, L) in enumerate(shapes):
+        state, hc, vc = random_dense_state(H, W, L, seed + i, False, device)
+        for rc, sc, leave in PHASE_PARAMS:
+            params = torch.tensor([rc, sc, round(10 * leave)], dtype=torch.int32)
+            out = phase_update_v1(params, state, hc, vc)
+            torch.cuda.synchronize()
+            ref = phase_update_ref(state, hc, vc, rc, sc, leave)
+            worst = max(worst, _compare("phase_update_v1", f"{H}x{W}x{L} {params.tolist()}",
+                                        out, ref, lambda line: None))
+            state = ref
+        log(f"check phase_update_v1 {H}x{W}x{L}: 6 launches, max abs err {worst:.1e}")
+    return worst
+
+
+def check_sharded_grid_kernels(device="cuda", shapes=CHECK_SHAPES, shard_counts=SHARD_COUNTS,
+                               seed=0, log=print):
+    """Every sharded kernel launch on every shard, at ``shapes`` and
+    ``shard_counts`` (all shards on ``device``), against its plain version on
+    the same window and slabs: each ``PHASE_PARAMS`` phase, then
+    ``n_rounds`` 1 and 2, chained.  Raise AssertionError on the first
+    disagreement; return the max abs error per kernel wrapper name.  Logs
+    one line per shape, input kind and shard count."""
+    worst = {"phase_update_sharded": 0.0, "round_update_sharded": 0.0}
+    steps = [(phase_update_sharded, phase_update_sharded_ref, p) for p in PHASE_PARAMS]
+    steps += [(round_update_sharded, round_update_sharded_ref, (nr,)) for nr in (1, 2)]
+    for i, (H, W, L) in enumerate(shapes):
+        for ties in (False, True):
+            state, hc, vc = random_dense_state(H, W, L, seed + i, ties, device)
+            tag = f"{H}x{W}x{L}{' ties' if ties else ''}"
+            for n in shard_counts:
+                lay = RowShards(H, W, [device] * n)
+                windows = lay.split(state)
+                costs = lay.split_costs(hc, vc)
+                cost_slabs = lay.slabs(costs)
+                errs = {}
+                for kern, ref_fn, params in steps:
+                    slabs = lay.slabs(windows)
+                    new = []
+                    for k in range(n):
+                        args = (windows[k], slabs[k], costs[k]["hc"], costs[k]["vc"],
+                                cost_slabs[k], lay.row0[k], H, W, *params)
+                        out = kern(*args)
+                        torch.cuda.synchronize()
+                        ref = ref_fn(*args)
+                        label = f"{tag} shards={n} shard {k} row0={lay.row0[k]} {params}"
+                        err = _compare(kern.__name__, label, out, ref, lambda line: None)
+                        errs[kern.__name__] = max(errs.get(kern.__name__, 0.0), err)
+                        new.append(ref)     # chain, so later launches start from rich state
+                    windows = new
+                for name, err in errs.items():
+                    worst[name] = max(worst[name], err)
+                log(f"check sharded {tag} shards={n} (Hl={lay.Hl}): {6 * n} phase and {2 * n} "
+                    f"round launches, max abs err " +
+                    " ".join(f"{k}={e:.1e}" for k, e in errs.items()))
     return worst

@@ -16,15 +16,32 @@ snapshot), then cells of ``send_color`` send ``omega * uu`` into each own
 slot with ``omega = 1 / max(deg + leave, 1)`` and keep ``uu * (1 -
 omega * deg)``.
 
+Sharded layout (one row shard of ``parallel/grid.py``): a window of ``n``
+rows, global rows ``[row0, row0 + n)``, with every slot at its owner's row:
+
+    u    [L, n, W]      hm1, hm2 [L, n, W-1]   as above
+    vm1  [L, n, W]      row r: slot of the edge below r, owned by r
+    vm2  [L, n, W]      row r: slot of the edge above r, owned by r
+    hc   [n, W-1], vc [n, W]   vc row r: cost of the edge below r
+
+plus, per array, a ``(top, bottom)`` pair of ``SLAB``-row slabs, the rows
+just above and below the window (cut from the neighbour shards, zeros past
+the grid).  Global rows >= H are inert and stay exactly 0, as do the slots
+of edges that do not exist (vm1 of the last grid row, vm2 of the first).
+Colour, degree and edges come from the global row and the global ``H``.
+
 ``phase_update`` replaces the TPU kernel ``_phase_kernel_v2``
-(``lp_mp_tpu/ops/pallas_grid.py:161``, wrapper ``phase_update_v2``) and
-serves the math of the v1 ``_phase_kernel`` (``:72``); ``round_update``
-replaces ``_round_kernel_v2`` (``:303``, wrapper ``round_update_v2``).  Both
-are bound by device-memory bandwidth: a phase reads and writes the five
-state arrays and reads the two cost arrays, with a few dozen flops per cell
-and label.  The round kernel fuses ``2 * n_rounds`` phases into one pass
-through shared memory, so the bytes per iteration fall by that factor
-(design note in ``csrc/grid_potts.cu``).
+(``lp_mp_tpu/ops/pallas_grid.py:161``, wrapper ``phase_update_v2``);
+``phase_update_v1`` takes the int32[3] parameters of the v1 ``_phase_kernel``
+(``:72``) and launches the same CUDA kernel; ``round_update`` replaces
+``_round_kernel_v2`` (``:303``, wrapper ``round_update_v2``);
+``phase_update_sharded`` and ``round_update_sharded`` replace
+``_phase_kernel_sharded`` (``:443``) and ``_round_kernel_sharded`` (``:536``)
+on one shard's window.  All are bound by device-memory bandwidth: a phase
+reads and writes the five state arrays and reads the two cost arrays, with a
+few dozen flops per cell and label.  The round kernels fuse ``2 * n_rounds``
+phases into one pass through shared memory, so the bytes per iteration fall
+by that factor (design note in ``csrc/grid_potts.cu``).
 
 Each wrapper runs its plain version for CPU tensors and its CUDA kernel for
 CUDA tensors (float32 only, like the Pallas kernels); anything else raises.
@@ -32,6 +49,9 @@ CUDA tensors (float32 only, like the Pallas kernels); anything else raises.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -43,6 +63,9 @@ STATE_KEYS = ("u", "hm1", "hm2", "vm1", "vm2")
 # Largest label count the round kernel's shared-memory tile takes
 # (kMaxRoundLabels in csrc/grid_potts.cu).
 ROUND_MAX_LABELS = 32
+# Rows of each halo slab of the sharded layout (kSlab in csrc/grid_potts.cu):
+# the round kernel's halo of 2 * n_rounds <= 4 rows.
+SLAB = 4
 
 
 # ---------------------------------------------------------------------------
@@ -121,17 +144,108 @@ def round_update_ref(state, hc, vc, n_rounds: int = 1):
     return state
 
 
+def _extend(window, slabs, hc_win, vc_win, cost_slabs):
+    """The window with its slabs: every array over rows [-SLAB, n + SLAB)."""
+    ext = {k: torch.cat([slabs[k][0], window[k], slabs[k][1]], dim=-2) for k in STATE_KEYS}
+    hc = torch.cat([cost_slabs["hc"][0], hc_win, cost_slabs["hc"][1]], dim=-2)
+    vc = torch.cat([cost_slabs["vc"][0], vc_win, cost_slabs["vc"][1]], dim=-2)
+    return ext, hc, vc
+
+
+def _window(ext, n):
+    return {k: v[..., SLAB:SLAB + n, :].contiguous() for k, v in ext.items()}
+
+
+def _sharded_phase_ext(ext, hc, vc, grow, H, recv_color, send_color, leave):
+    """One colour phase on extended owner-row arrays whose rows are the global
+    rows ``grow`` [E].  Returns the new arrays and the post-receive cost
+    ``uu`` (for rounding).  The rows at both ends go stale (their outer edge
+    is missing), as the halo rows of the TPU kernels do; rows at least k rows
+    inside are exact after k phases."""
+    u = ext["u"]
+    dev, dtype = u.device, u.dtype
+    W = u.shape[-1]
+    g = grow[:, None]
+    c = torch.arange(W, device=dev)[None, :]
+    cell = (g >= 0) & (g < H) & (c >= 0)  # [E, W]
+    black = cell & ((g + c) % 2 == 0)
+    color = {0: torch.zeros_like(cell), 1: black, 2: cell & ~black}
+    f = lambda b: b.to(dtype)  # noqa: E731
+    deg = f(cell) * (f(c < W - 1) + f(c > 0) + f(g < H - 1) + f(g > 0))
+    recvm = f(color[recv_color])[None]
+    omega = f(color[send_color]) / torch.clamp(deg + leave, min=1.0)
+    vedge = f(cell[:-1] & (g[:-1] < H - 1))[None]  # edge between rows e and e+1
+    v1, v2, vce = ext["vm1"][:, :-1], ext["vm2"][:, 1:], vc[:-1]
+
+    d1 = potts_marginal(ext["hm1"], ext["hm2"], hc) * recvm[:, :, :-1]
+    d2 = potts_marginal(ext["hm2"], ext["hm1"], hc) * recvm[:, :, 1:]
+    d3 = potts_marginal(v1, v2, vce) * (recvm[:, :-1] * vedge)
+    d4 = potts_marginal(v2, v1, vce) * (recvm[:, 1:] * vedge)
+    uu = (u + F.pad(d1, (0, 1)) + F.pad(d2, (1, 0))
+          + F.pad(d3, (0, 0, 0, 1)) + F.pad(d4, (0, 0, 1, 0)))
+    d = uu * omega[None]
+    exists = vedge > 0
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    new = {"u": uu * (1.0 - omega * deg)[None],
+           "hm1": ext["hm1"] - d1 + d[:, :, :-1],
+           "hm2": ext["hm2"] - d2 + d[:, :, 1:],
+           "vm1": F.pad(torch.where(exists, v1 - d3 + d[:, :-1], zero), (0, 0, 0, 1)),
+           "vm2": F.pad(torch.where(exists, v2 - d4 + d[:, 1:], zero), (0, 0, 1, 0))}
+    return new, uu
+
+
+def _global_rows(row0, n, device):
+    return torch.arange(row0 - SLAB, row0 + n + SLAB, device=device)
+
+
+def sharded_phase(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int,
+                  recv_color: int, send_color: int, leave: float = 0.0):
+    """One colour phase on a shard's window, plain torch: (new window, the
+    window's post-receive cost ``uu``)."""
+    n = window["u"].shape[1]
+    ext, hc, vc = _extend(window, slabs, hc_win, vc_win, cost_slabs)
+    new, uu = _sharded_phase_ext(ext, hc, vc, _global_rows(row0, n, hc.device), H,
+                                recv_color, send_color, leave)
+    return _window(new, n), uu[:, SLAB:SLAB + n]
+
+
+def phase_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int,
+                             W: int, recv_color: int, send_color: int, leave: float = 0.0):
+    """One colour phase on a shard's window, plain torch (the math of
+    ``_phase_kernel_sharded``; mirrors ``parallel/grid.py:_phase_arrays``)."""
+    return sharded_phase(window, slabs, hc_win, vc_win, cost_slabs, row0, H,
+                         recv_color, send_color, leave)[0]
+
+
+def round_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int,
+                             W: int, n_rounds: int = 1):
+    """``n_rounds`` anisotropic rounds on a shard's window, plain torch (the
+    math of ``_round_kernel_sharded``): the 2 * n_rounds <= SLAB phases run on
+    the window with its slabs, and the window is cut out at the end."""
+    n = window["u"].shape[1]
+    ext, hc, vc = _extend(window, slabs, hc_win, vc_win, cost_slabs)
+    grow = _global_rows(row0, n, hc.device)
+    for _ in range(n_rounds):
+        ext, _ = _sharded_phase_ext(ext, hc, vc, grow, H, 2, 2, 0.0)
+        ext, _ = _sharded_phase_ext(ext, hc, vc, grow, H, 1, 1, 0.0)
+    return _window(ext, n)
+
+
 # ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, CUDA kernel on the card
 # ---------------------------------------------------------------------------
-def _device_of(state, hc, vc) -> torch.device:
-    devices = {t.device for t in (*(state[k] for k in STATE_KEYS), hc, vc)}
+def _device_of_tensors(tensors) -> torch.device:
+    devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"grid kernel inputs lie on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"grid kernels run on cpu or cuda tensors, not {dev}")
     return dev
+
+
+def _device_of(state, hc, vc) -> torch.device:
+    return _device_of_tensors((*(state[k] for k in STATE_KEYS), hc, vc))
 
 
 def _check_cuda_args(state, hc, vc):
@@ -154,20 +268,82 @@ def _check_cuda_args(state, hc, vc):
     return L, H, W
 
 
-def _launch(fn_name: str, state, hc, vc, *scalars):
-    L, H, W = _check_cuda_args(state, hc, vc)
+def _check_colours(recv_color, send_color):
+    for code in (recv_color, send_color):
+        if code not in (0, 1, 2):
+            raise ValueError(f"colour code {code!r} is not 0 (none), 1 (black) or 2 (red)")
+
+
+def _sharded_tensors(window, slabs, hc_win, vc_win, cost_slabs):
+    """Every input of a sharded launch by name, in the kernel's pointer order:
+    per array the window, its top slab and its bottom slab."""
+    named = {}
+    for k, win, (top, bot) in [*((k, window[k], slabs[k]) for k in STATE_KEYS),
+                               ("hc", hc_win, cost_slabs["hc"]),
+                               ("vc", vc_win, cost_slabs["vc"])]:
+        named[k] = win
+        named[f"{k} top slab"] = top
+        named[f"{k} bottom slab"] = bot
+    return named
+
+
+def _check_sharded_args(named, row0, H, W, cuda: bool):
+    """(L, n) of a valid shard window with its slabs (``named`` as
+    ``_sharded_tensors`` gives it), or raise.  For a CUDA launch the arrays
+    are float32, the windows contiguous and each slab's rows contiguous; a
+    slab may be a view of a neighbour's window, with its own label stride."""
+    if not isinstance(row0, int) or isinstance(row0, bool) or row0 < 0:
+        raise ValueError(f"row0 must be a non-negative int, got {row0!r}")
+    if not isinstance(H, int) or H < 1 or not isinstance(W, int) or W < 1:
+        raise ValueError(f"H and W must be positive ints, got {H!r}, {W!r}")
+    u = named["u"]
+    if u.ndim != 3:
+        raise ValueError(f"u must be [L, n, W], got shape {tuple(u.shape)}")
+    L, n, _ = u.shape
+    lead = {"u": (L,), "hm1": (L,), "hm2": (L,), "vm1": (L,), "vm2": (L,), "hc": (), "vc": ()}
+    width = {"u": W, "hm1": W - 1, "hm2": W - 1, "vm1": W, "vm2": W, "hc": W - 1, "vc": W}
+    for name, t in named.items():
+        key, slab = name.split(" ")[0], name.endswith("slab")
+        want = (*lead[key], SLAB if slab else n, width[key])
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
+        if not cuda:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA grid kernels take float32; {name} is {t.dtype}")
+        rows_ok = t.numel() == 0 or (t.stride(-1) == 1 and t.stride(-2) == t.shape[-1])
+        if not (rows_ok if slab else t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous" + (" within each label" if slab else ""))
+    return L, n
+
+
+def _run(fn_name: str, dev, ptr_args, out, *scalars):
     lib = _cuda_build.library()
-    dev = state["u"].device
-    out = {k: torch.empty_like(state[k]) for k in STATE_KEYS}
-    ptrs = [state[k].data_ptr() for k in STATE_KEYS] + [hc.data_ptr(), vc.data_ptr()]
-    ptrs += [out[k].data_ptr() for k in STATE_KEYS]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn_name)(*ptrs, L, H, W, *scalars, dev.index, stream)
+        rc = getattr(lib, fn_name)(*ptr_args, *scalars, dev.index, stream)
     if rc != 0:
         msg = lib.lpmp_cuda_error_string(rc).decode()
         raise RuntimeError(f"{fn_name} failed to launch: CUDA error {rc} ({msg})")
     return out
+
+
+def _launch(fn_name: str, state, hc, vc, *scalars):
+    L, H, W = _check_cuda_args(state, hc, vc)
+    out = {k: torch.empty_like(state[k]) for k in STATE_KEYS}
+    ptrs = [state[k].data_ptr() for k in STATE_KEYS] + [hc.data_ptr(), vc.data_ptr()]
+    ptrs += [out[k].data_ptr() for k in STATE_KEYS]
+    return _run(fn_name, state["u"].device, ptrs, out, L, H, W, *scalars)
+
+
+def _launch_sharded(fn_name: str, named, L, n, row0, H, W, *scalars):
+    window = {k: named[k] for k in STATE_KEYS}
+    out = {k: torch.empty_like(window[k]) for k in STATE_KEYS}
+    ptrs = [t.data_ptr() for t in named.values()] + [out[k].data_ptr() for k in STATE_KEYS]
+    slab_ls = [t.stride(0) if t.ndim == 3 else 0
+               for name, t in named.items() if name.endswith("slab")]
+    args = [(ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(slab_ls))(*slab_ls)]
+    return _run(fn_name, window["u"].device, args, out, L, n, W, row0, H, *scalars)
 
 
 def phase_update(state, hc, vc, recv_color: int, send_color: int,
@@ -177,12 +353,29 @@ def phase_update(state, hc, vc, recv_color: int, send_color: int,
     dev = _device_of(state, hc, vc)
     if dev.type == "cpu":
         return phase_update_ref(state, hc, vc, recv_color, send_color, leave)
-    for code in (recv_color, send_color):
-        if code not in (0, 1, 2):
-            raise ValueError(f"colour code {code!r} is not 0 (none), 1 (black) or 2 (red)")
+    _check_colours(recv_color, send_color)
     out = _launch("lpmp_grid_phase_update", state, hc, vc,
                   int(recv_color), int(send_color), float(leave))
     phase_update.launches += 1
+    return out
+
+
+def phase_update_v1(params, state, hc, vc):
+    """One colour phase under the v1 kernel's contract (``phase_update``,
+    ``pallas_grid.py:770``): ``params`` int32[3] = (recv_color, send_color,
+    leave x 10), decoded as the v1 kernel does (leave = float32(p[2]) / 10)
+    and run through the phase kernel.  Returns a new state dict."""
+    if not isinstance(params, torch.Tensor) or params.dtype != torch.int32 \
+            or tuple(params.shape) != (3,):
+        raise ValueError(f"params must be an int32 tensor of shape (3,), got {params!r}")
+    recv_color, send_color, leave10 = params.tolist()
+    leave = float(np.float32(leave10) / np.float32(10.0))
+    dev = _device_of(state, hc, vc)
+    if dev.type == "cpu":
+        return phase_update_ref(state, hc, vc, recv_color, send_color, leave)
+    _check_colours(recv_color, send_color)
+    out = _launch("lpmp_grid_phase_update", state, hc, vc, recv_color, send_color, leave)
+    phase_update_v1.launches += 1
     return out
 
 
@@ -203,14 +396,57 @@ def round_update(state, hc, vc, n_rounds: int = 1):
     return out
 
 
-phase_update.launches = 0
-round_update.launches = 0
-KERNEL_WRAPPERS = (phase_update, round_update)
+def phase_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int, W: int,
+                         recv_color: int, send_color: int, leave: float = 0.0):
+    """One colour phase on a shard's window (sharded layout above); replaces
+    ``phase_update_sharded`` of the TPU package.  ``slabs``: dict of
+    ``(top, bottom)`` per state array; ``cost_slabs``: the same for hc, vc.
+    Returns the window's new state dict."""
+    named = _sharded_tensors(window, slabs, hc_win, vc_win, cost_slabs)
+    dev = _device_of_tensors(named.values())
+    L, n = _check_sharded_args(named, row0, H, W, cuda=dev.type == "cuda")
+    _check_colours(recv_color, send_color)
+    if dev.type == "cpu":
+        return phase_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0, H, W,
+                                        recv_color, send_color, leave)
+    out = _launch_sharded("lpmp_grid_phase_update_sharded", named, L, n, row0, H, W,
+                          int(recv_color), int(send_color), float(leave))
+    phase_update_sharded.launches += 1
+    return out
+
+
+def round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int, W: int,
+                         n_rounds: int = 1):
+    """``n_rounds`` (1 or 2) anisotropic rounds in one pass over a shard's
+    window; replaces ``round_update_sharded`` of the TPU package."""
+    if n_rounds not in (1, 2):
+        raise ValueError(f"n_rounds must be 1 or 2, got {n_rounds!r}")
+    named = _sharded_tensors(window, slabs, hc_win, vc_win, cost_slabs)
+    dev = _device_of_tensors(named.values())
+    L, n = _check_sharded_args(named, row0, H, W, cuda=dev.type == "cuda")
+    if dev.type == "cpu":
+        return round_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0, H, W,
+                                        n_rounds)
+    if L > ROUND_MAX_LABELS:
+        raise ValueError(
+            f"round_update_sharded's shared-memory tile takes at most {ROUND_MAX_LABELS} "
+            f"labels, got L={L}; use phase_update_sharded phases instead")
+    out = _launch_sharded("lpmp_grid_round_update_sharded", named, L, n, row0, H, W,
+                          int(n_rounds))
+    round_update_sharded.launches += 1
+    return out
+
+
+KERNEL_WRAPPERS = (phase_update, round_update, phase_update_v1, phase_update_sharded,
+                   round_update_sharded)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict:

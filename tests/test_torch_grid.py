@@ -208,7 +208,8 @@ def test_dtype_policy():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys; import lp_mp_tpu_torch, lp_mp_tpu_torch.kernel_check, chip_smoke; "
+    code = ("import sys; import lp_mp_tpu_torch, lp_mp_tpu_torch.kernel_check, "
+            "lp_mp_tpu_torch.parallel, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lp_mp_tpu')]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
