@@ -12,10 +12,23 @@ lower_bound and round_primal; the same grid through
 ShardedGridPotts.run_fast at 1 and 4 shards on the one card, held against
 the dense path; and the uniform schedule through the v1 contract.  Checks
 the bounds against the JAX package's, times each path and kernel against its
-plain or dense counterpart, and prints one line per phase.  The line before
-the last is a JSON record of the kernels; the last is {"ok": true,
-"device": {...}}.  Any failure raises and exits non-zero; without a CUDA
-device it exits non-zero at once.
+plain or dense counterpart, and prints one line per phase.
+
+Then the generic engine path, plain PyTorch on the card in float32: a chain
+of 100000 variables with 8 labels built through MrfConstructor's batch
+constructors and Engine(schedule_mode="auto"), whose bound must rise
+monotonically to within 1e-4 relative of the exact optimum (a min-plus
+reduction on the host) in at most 200 passes; the same chain through
+Solver + StandardVisitor, whose primal must be feasible and above the bound;
+and the 1000x1000 grid through the engine, whose bound after 100 anisotropic
+passes must lie within 1e-5 relative of GridPottsModel's kernel path.  It
+times the engine's passes, their host enqueue time, the device idle share of
+one pass and the engine build, and needs the native host library
+(csrc/lpmp_host.cpp, built with g++) for the schedule at this size.
+
+The last lines are a JSON record of the engine path, a JSON record of the
+kernels, and {"ok": true, "device": {...}}.  Any failure raises and exits
+non-zero; without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -25,11 +38,15 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from lp_mp_tpu_torch import GridPottsModel, ShardedGridPotts, random_grid
+from lp_mp_tpu_torch import (Direction, Engine, FactorGraph, GridPottsModel, MrfConstructor,
+                             ShardedGridPotts, Solver, StandardVisitor, native, random_grid)
 from lp_mp_tpu_torch.kernel_check import (RTOL, check_grid_kernels, check_phase_v1,
                                           check_sharded_grid_kernels)
+from lp_mp_tpu_torch.models.grid_potts import grid_potts_edges
 from lp_mp_tpu_torch.ops import _cuda_build
 from lp_mp_tpu_torch.ops.grid_kernels import (launch_counts, phase_update, phase_update_ref,
                                               phase_update_sharded, phase_update_sharded_ref,
@@ -50,6 +67,12 @@ REPLACES = {"round_update": "lp_mp_tpu/ops/pallas_grid.py:303",
             "round_update_sharded": "lp_mp_tpu/ops/pallas_grid.py:536",
             "phase_update_sharded": "lp_mp_tpu/ops/pallas_grid.py:443",
             "phase_update_v1": "lp_mp_tpu/ops/pallas_grid.py:72"}
+# the generic engine path: bench.py's chain (bench.py:334-394) and its exact
+# optimum as BASELINE_MEASURED.json records it
+CHAIN_N, CHAIN_L, CHAIN_SEED = 100_000, 8, 2
+CHAIN_OPT = -229782.13510709113
+CHAIN_CHUNK, CHAIN_MAX_PASSES, CHAIN_GAP = 5, 200, 1e-4
+ENGINE_GRID_PASSES = 100
 
 
 def fail(msg: str) -> None:
@@ -320,6 +343,217 @@ def phase_time(card: str) -> dict:
     return times
 
 
+def chain_instance(n: int, labels: int, seed: int):
+    """bench.py's chain: normal unaries [n, L], normal pairwise [n-1, L, L]."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(n, labels)), rng.normal(size=(n - 1, labels, labels))
+
+
+def chain_optimum(un, pw) -> float:
+    """Exact chain optimum by a min-plus tree reduction (bench.py:339-359):
+    edge matrices M_e[a, b] = pw[e][a, b] + un[e+1, b], multiplied in
+    log2(n) vectorised levels."""
+    M = pw + un[1:, None, :]
+    while M.shape[0] > 1:
+        last = None
+        if M.shape[0] % 2:
+            last, M = M[-1:], M[:-1]
+        M = (M[0::2][:, :, :, None] + M[1::2][:, None, :, :]).min(axis=2)
+        if last is not None:
+            M = np.concatenate([M[:-1], (M[-1][:, :, None] + last[0][None]).min(axis=1)[None]])
+    return float((un[0][:, None] + M[0]).min())
+
+
+def build_chain(ctor: MrfConstructor, un, pw) -> None:
+    ctor.add_unary_factors(un)
+    n = un.shape[0]
+    ctor.add_pairwise_factors(np.stack([np.arange(n - 1), np.arange(1, n)], axis=1), pw)
+
+
+def timed_engine(g: FactorGraph, **kw) -> tuple:
+    """An engine on the card and its build seconds: host schedule, plans,
+    upload, and the anisotropic weights of both directions."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    e = Engine(g, device="cuda", dtype=torch.float32, **kw)
+    for d in Direction:
+        e.weights("anisotropic", d)
+    torch.cuda.synchronize()
+    return e, time.perf_counter() - t
+
+
+def profile_pass(fn) -> dict:
+    """Wall time, device busy time and idle share of one call of ``fn`` under
+    torch.profiler, plus the aten ops that take the most device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kern = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    ops = []
+    for a in prof.key_averages():
+        if a.self_device_time_total > 0:
+            ops.append((a.self_device_time_total / 1e3, a.key, a.count))
+    ops.sort(reverse=True)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy, "kernels": len(kern),
+            "idle_share": 1.0 - busy / (wall * 1e3), "top": ops[:6]}
+
+
+def print_profile(tag: str, p: dict, card: str) -> None:
+    print(f"{tag}: one pass under torch.profiler: wall {p['wall_ms']:.3f} ms, device busy "
+          f"{p['busy_ms']:.3f} ms in {p['kernels']} kernels, idle share {p['idle_share']:.3f} "
+          f"on {card}")
+    print(f"{tag}: device time by op: " + ", ".join(
+        f"{k} {ms:.3f} ms/{n}" for ms, k, n in p["top"]))
+
+
+def phase_native() -> float:
+    """The host schedule at a million factors needs the native library:
+    its pure-Python fallbacks would outlast the run."""
+    t = time.perf_counter()
+    lib = native.get_lib()
+    sec = time.perf_counter() - t
+    if lib is None:
+        fail("the native host library (csrc/lpmp_host.cpp, g++) did not build or load")
+    print(f"native: liblpmp_host.so ready in {sec:.2f} s (g++ build if not cached)")
+    return sec
+
+
+def phase_engine_chain() -> dict:
+    """The chain through Engine(schedule_mode="auto") and through Solver."""
+    un, pw = chain_instance(CHAIN_N, CHAIN_L, CHAIN_SEED)
+    t = time.perf_counter()
+    opt = chain_optimum(un, pw)
+    print(f"chain: n={CHAIN_N} L={CHAIN_L} seed={CHAIN_SEED}: exact optimum {opt!r} "
+          f"(min-plus reduction, {time.perf_counter() - t:.2f} s), recorded {CHAIN_OPT!r}")
+    if not rel(opt, CHAIN_OPT) <= 1e-12:
+        fail(f"chain optimum {opt} differs from the recorded {CHAIN_OPT}")
+    g = FactorGraph()
+    t = time.perf_counter()
+    build_chain(MrfConstructor(g), un, pw)
+    ctor_s = time.perf_counter() - t
+    e, build_s = timed_engine(g, schedule_mode="auto")
+    nph = {d.value: len(p) for d, p in e.phases.items()}
+    print(f"chain: {g.n_factors} factors, constructor {ctor_s:.2f} s, Engine build {build_s:.2f} s, "
+          f"schedule_mode=auto chose {e.schedule_mode!r}, phases {nph}")
+    if e.schedule_mode != "coloring":
+        fail(f"auto chose {e.schedule_mode} for {g.n_factors} factors")
+
+    scale = max(1.0, abs(opt))
+    prev, passes = e.lower_bound(), 0
+    while opt - prev > CHAIN_GAP * scale and passes < CHAIN_MAX_PASSES:
+        for _ in range(CHAIN_CHUNK):
+            e.compute_pass("anisotropic")
+        passes += CHAIN_CHUNK
+        lb = e.lower_bound()
+        print(f"chain: {passes:3d} passes: lower bound {lb:.6f}, gap {(opt - lb) / scale:.3e}")
+        if lb < prev - 1e-4 * abs(prev):
+            fail(f"chain bound dropped from {prev} to {lb} after {passes} passes")
+        if lb > opt + 1e-4 * scale:
+            fail(f"chain bound {lb} lies above the optimum {opt}")
+        prev = lb
+    gap = (opt - prev) / scale
+    print(f"chain: gap {gap:.3e} to the exact optimum after {passes} passes (limit {CHAIN_GAP} "
+          f"within {CHAIN_MAX_PASSES})")
+    if not gap <= CHAIN_GAP:
+        fail(f"chain gap {gap} after {passes} passes")
+
+    s = Solver(visitor=StandardVisitor(max_iter=200), schedule_mode="auto", device="cuda",
+               dtype=torch.float32)
+    build_chain(s.add_constructor(MrfConstructor), un, pw)
+    t = time.perf_counter()
+    lb = s.solve()
+    solve_s = time.perf_counter() - t
+    ub = s.primal_cost()
+    ev = s.engine.evaluate_primal(s.best_primal)
+    print(f"chain: Solver + StandardVisitor(max_iter=200) in {solve_s:.2f} s: lb {lb:.6f}, "
+          f"ub {ub:.6f}, evaluate_primal {ev:.6f}; gap to the optimum: lb "
+          f"{(opt - lb) / scale:.3e}, ub {(ub - opt) / scale:.3e}")
+    if not (np.isfinite(ev) and np.isfinite(ub) and ub >= lb - 1e-4 * abs(lb)):
+        fail(f"Solver: ub {ub} (evaluate_primal {ev}) is not a feasible primal above lb {lb}")
+    return e, {"passes_to_gap": passes, "gap": gap, "lb": prev, "build_s": build_s,
+               "solver_lb": lb, "solver_ub": ub, "solver_s": solve_s}
+
+
+def phase_engine_grid() -> dict:
+    """The main grid through the generic engine (Potts pairs batch-built in
+    the per-cell order of tests/test_grid.py), held against GridPottsModel's
+    kernel path on the card.  The engine launches no hand-written kernel:
+    the counters stay at 0 through its passes."""
+    u, hc, vc = random_grid(H, W, L, seed=SEED)
+    g = FactorGraph()
+    t = time.perf_counter()
+    ctor = MrfConstructor(g)
+    ctor.add_unary_factors(u.reshape(H * W, L))
+    pairs, diffs = grid_potts_edges(hc, vc)
+    ctor.add_potts_factors(pairs, L, diffs)
+    ctor_s = time.perf_counter() - t
+    e, build_s = timed_engine(g, schedule_mode="coloring")
+    nph = {d.value: len(p) for d, p in e.phases.items()}
+    print(f"engine grid: {H}x{W} L={L}: {g.n_factors} factors, constructor {ctor_s:.2f} s, "
+          f"Engine build {build_s:.2f} s, phases {nph}")
+    reset_launch_counts()
+    for _ in range(ENGINE_GRID_PASSES):
+        e.compute_pass("anisotropic")
+    lb_e = e.lower_bound()
+    counts = launch_counts()
+    print(f"engine grid: bound after {ENGINE_GRID_PASSES} anisotropic passes {lb_e:.6f}; "
+          f"hand-written kernel launches in them {counts}")
+    if any(counts.values()):
+        fail(f"the generic engine launched grid kernels: {counts}")
+
+    m = GridPottsModel(u, hc, vc, device="cuda", dtype=torch.float32)
+    reset_launch_counts()
+    m.run_fast(ENGINE_GRID_PASSES, kernel="cuda")
+    lb_k = m.lower_bound()
+    counts = launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(phase_update=1, round_update=ENGINE_GRID_PASSES // 2)
+    if counts != expect:
+        fail(f"GridPottsModel kernel path launches {counts} differ from the schedule's {expect}")
+    mi = GridPottsModel(u, hc, vc, device="cuda", dtype=torch.float32)
+    mi.iterate("anisotropic", ENGINE_GRID_PASSES)
+    lb_i = mi.lower_bound()
+    print(f"engine grid: GridPottsModel after {ENGINE_GRID_PASSES} iterations: kernel path "
+          f"{lb_k:.6f} (launches {counts}), iterate {lb_i:.6f}; engine rel diff "
+          f"{rel(lb_e, lb_k):.3e} to the kernel path, {rel(lb_e, lb_i):.3e} to iterate "
+          f"(limit 1e-5)")
+    if not (rel(lb_e, lb_k) <= 1e-5 and rel(lb_e, lb_i) <= 1e-5):
+        fail(f"generic engine bound {lb_e} disagrees with GridPottsModel ({lb_k}, {lb_i})")
+    return e, m, {"lb": lb_e, "lb_kernel_path": lb_k, "build_s": build_s}
+
+
+def phase_engine_time(card: str, ec: Engine, eg: Engine, m: GridPottsModel) -> tuple:
+    """Engine passes per second beside the kernel path, host enqueue time of
+    one pass, device idle share of one pass."""
+    n = 20
+    fns = {"chain pass": lambda: ec.compute_pass("anisotropic"),
+           "grid pass": lambda: eg.compute_pass("anisotropic"),
+           f"grid kernel path run_fast({n})": lambda: m.run_fast(n, kernel="cuda")}
+    t = in_turns(fns, reps=3)
+    host = {k: host_ms(fn, reps=3) for k, fn in fns.items()}
+    its = {"chain": 1e3 / t["chain pass"], "grid": 1e3 / t["grid pass"],
+           "grid_kernel_path": n * 1e3 / t[f"grid kernel path run_fast({n})"]}
+    print("engine time: " + ", ".join(
+        f"{k} {v:.3f} ms (host enqueue {host[k]:.3f} ms)" for k, v in t.items())
+        + f" (median of 3 in turns, CUDA events) on {card}")
+    print(f"engine time: generic engine {its['chain']:.1f} it/s on the chain, {its['grid']:.2f} "
+          f"it/s on the {H}x{W} grid; GridPottsModel kernel path {its['grid_kernel_path']:.1f} "
+          f"it/s on the same grid, on {card}")
+    prof = {}
+    for tag, e in (("chain", ec), ("grid", eg)):
+        prof[tag] = profile_pass(lambda e=e: e.compute_pass("anisotropic"))
+        print_profile(f"engine time: {tag}", prof[tag], card)
+    return {tag: {"its": its[tag], "pass_ms": t[f"{tag} pass"],
+                  "host_enqueue_ms": host[f"{tag} pass"],
+                  "idle_share": prof[tag]["idle_share"], "busy_ms": prof[tag]["busy_ms"]}
+            for tag in ("chain", "grid")}, its["grid_kernel_path"]
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name, count, card = phase_device()
@@ -339,7 +573,14 @@ def main() -> None:
                 "launches": counts[k], "max_abs_err": worst[k],
                 "ms": times[k][0], "plain_ms": times[k][1]}
                for k in REPLACES]
+    native_s = phase_native()
+    ec, chain = phase_engine_chain()
+    eg, m, grid = phase_engine_grid()
+    t, kernel_path_its = phase_engine_time(card, ec, eg, m)
+    engine = {"chain": chain | t["chain"], "grid": grid | t["grid"],
+              "grid_kernel_path_its": kernel_path_its, "native_build_s": native_s, "card": card}
     print(f"total: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"engine": engine}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

@@ -8,6 +8,13 @@ packages share the dense layout, so this is a copy, not a relayout.
 ``sharded_state_from_jax`` takes the JAX ``ShardedGridPotts``'s mask-form
 state (numpy ``[L, R, C]`` arrays) and its ``geom``, and returns the same
 dense dict; ``ShardedGridPotts.load_state`` splits it over the port's shards.
+
+``engine_state_from_numpy`` takes the JAX ``Engine``'s state as numpy
+arrays, ``{type: {key: np.asarray(v)}}``, and returns the port's, for
+``Engine.set_state``; ``engine_state_to_numpy`` goes the other way.  Both
+engines build the same blocks in the same layout, so this too is a copy:
+float lanes take ``dtype``, integer lanes (``nl``, ``n1``, ``n2``) stay
+integer.
 """
 from __future__ import annotations
 
@@ -44,3 +51,28 @@ def sharded_state_from_jax(mask_state, geom, device="cpu", dtype=torch.float64):
              "hm1": m["hm1"][:, P:P + H, 1:W], "hm2": m["hm2"][:, P:P + H, 1:W],
              "vm1": m["vm1"][:, P:P + H - 1, 1:1 + W], "vm2": m["vm2"][:, P:P + H - 1, 1:1 + W]}
     return grid_state_from_numpy(dense, device=device, dtype=dtype)
+
+
+def block_from_numpy(block, device="cpu", dtype=torch.float64):
+    """One block ``{key: numpy array}`` -> ``{key: tensor}`` on ``device``.
+    Always copies, so writing into the result never reaches the numpy
+    arrays (a graph's batch payloads): float lanes take ``dtype``, integer
+    lanes keep their type."""
+    out = {}
+    for k, v in block.items():
+        t = torch.from_numpy(np.array(v))
+        out[k] = t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype)
+    return out
+
+
+def engine_state_from_numpy(np_state, device="cpu", dtype=torch.float64):
+    """Engine state ``{type: {key: numpy array}}`` -> the port's ``{type:
+    {key: tensor}}`` on ``device``.  Always copies."""
+    return {name: block_from_numpy(block, device, dtype) for name, block in np_state.items()}
+
+
+def engine_state_to_numpy(state):
+    """The port's engine state (or a primal) -> ``{type: {key: numpy
+    array}}`` on the host."""
+    return {name: {k: v.detach().cpu().numpy() for k, v in block.items()}
+            for name, block in state.items()}

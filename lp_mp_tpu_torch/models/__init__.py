@@ -1,1 +1,1 @@
-"""Model families of the port: the dense Potts grid."""
+"""Model families of the port: the dense Potts grid and the generic MRF constructor."""

@@ -243,6 +243,24 @@ class GridPottsModel:
         return x.to(torch.int32).cpu().numpy(), float(ub)
 
 
+def grid_potts_edges(hcost, vcost):
+    """The grid's Potts pairs for the generic MRF constructor (variable
+    r*W+c), in its per-cell order: the horizontal pair, then the vertical
+    one.  Returns (pairs [E, 2] int64, diffs [E]) for
+    ``MrfConstructor.add_potts_factors``."""
+    hcost, vcost = np.asarray(hcost), np.asarray(vcost)
+    H, W = hcost.shape[0], vcost.shape[1]
+    idx = np.arange(H * W).reshape(H, W)
+    pairs = np.zeros((H, W, 2, 2), dtype=np.int64)
+    diffs = np.zeros((H, W, 2))
+    valid = np.zeros((H, W, 2), dtype=bool)
+    pairs[:, :-1, 0] = np.stack([idx[:, :-1], idx[:, 1:]], axis=-1)
+    diffs[:, :-1, 0], valid[:, :-1, 0] = hcost, True
+    pairs[:-1, :, 1] = np.stack([idx[:-1], idx[1:]], axis=-1)
+    diffs[:-1, :, 1], valid[:-1, :, 1] = vcost, True
+    return pairs[valid], diffs[valid]
+
+
 def random_grid(H, W, L, seed=0, potts_scale=1.0):
     """The JAX package's generator, value for value: numpy arrays
     (unary [H,W,L], hc [H,W-1], vc [H-1,W])."""

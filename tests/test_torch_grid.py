@@ -209,7 +209,12 @@ def test_dtype_policy():
 
 def test_port_imports_no_jax():
     code = ("import sys; import lp_mp_tpu_torch, lp_mp_tpu_torch.kernel_check, "
-            "lp_mp_tpu_torch.parallel, chip_smoke; "
+            "lp_mp_tpu_torch.parallel, lp_mp_tpu_torch.engine, lp_mp_tpu_torch.solver, "
+            "lp_mp_tpu_torch.visitors, lp_mp_tpu_torch.graph, lp_mp_tpu_torch.schedule, "
+            "lp_mp_tpu_torch.registry, lp_mp_tpu_torch.native, lp_mp_tpu_torch.factors.simplex, "
+            "lp_mp_tpu_torch.factors.potts, lp_mp_tpu_torch.messages.simplex_marginalization, "
+            "lp_mp_tpu_torch.messages.pairwise_triplet, lp_mp_tpu_torch.models.mrf, "
+            "lp_mp_tpu_torch.io.uai, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lp_mp_tpu')]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
