@@ -26,12 +26,26 @@ times the engine's passes, their host enqueue time, the device idle share of
 one pass and the engine build, and needs the native host library
 (csrc/lpmp_host.cpp, built with g++) for the schedule at this size.
 
-The last lines are a JSON record of the engine path, a JSON record of the
-kernels, and {"ok": true, "device": {...}}.  Any failure raises and exits
-non-zero; without a CUDA device it exits non-zero at once.
+Then tightening, plain PyTorch on the card in float32: the 200x250
+multicut grid with diagonals of bench.py (149101 edges) gets one cycle
+separation round on a fresh engine, timed as pull (engine block to the
+host), search (BFS) and add (triplets into the graph), which must add the
+same 500 triplets the JAX package adds; after a rebuild, 100 anisotropic
+passes must reach the JAX package's bound within 1e-4 relative, and GAEC
+must give its upper bound.  Three Solver runs with StandardTighteningVisitor
+follow: the 24x24 frustrated MRF grid (triplets absorbed by the aux pass or
+rebuilt into the engine) to gap 1e-4 at the JAX package's bound, the 40x40
+multicut grid to gap 1e-2, and the frustrated 4-cycle to lb 1.0.  The
+JAX package's values are constants below, taken on the CPU in float32.
+
+The last lines are JSON records of the engine path and of tightening, a
+JSON record of the kernels, and {"ok": true, "device": {...}}.  Any
+failure raises and exits non-zero; without a CUDA device it exits non-zero
+at once.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -43,7 +57,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from lp_mp_tpu_torch import (Direction, Engine, FactorGraph, GridPottsModel, MrfConstructor,
-                             ShardedGridPotts, Solver, StandardVisitor, native, random_grid)
+                             MulticutConstructor, ShardedGridPotts, Solver,
+                             StandardTighteningVisitor, StandardVisitor, native, random_grid)
+from lp_mp_tpu_torch.convert import host_array
 from lp_mp_tpu_torch.kernel_check import (RTOL, check_grid_kernels, check_phase_v1,
                                           check_sharded_grid_kernels)
 from lp_mp_tpu_torch.models.grid_potts import grid_potts_edges
@@ -73,6 +89,17 @@ CHAIN_N, CHAIN_L, CHAIN_SEED = 100_000, 8, 2
 CHAIN_OPT = -229782.13510709113
 CHAIN_CHUNK, CHAIN_MAX_PASSES, CHAIN_GAP = 5, 200, 1e-4
 ENGINE_GRID_PASSES = 100
+# tightening: what the JAX package gives on the same instances and calls, on
+# the CPU in float32 (lp_mp_tpu, JAX_PLATFORMS=cpu, config.set_dtype("float32"),
+# Engine/Solver with schedule_mode="auto", pass_style="auto")
+MC150K_PASSES = 100
+JAX_MC150K = {"triplets_added": 500, "n_triplets": 567, "n_edges": 149135,
+              "digest": "1457fd730514e979",       # triplet_digest of the triplets added
+              "lb": -24465.54296875, "gaec_ub": -6385.433191934672}
+JAX_GRID24 = {"lb": -133.89813232421875, "ub": -133.89813232421875, "builds": 4,
+              "n_triplets": 328}
+JAX_GRID40 = {"lb": -577.2794189453125, "ub": -571.923828125, "builds": 18,
+              "n_triplets": 21077}
 
 
 def fail(msg: str) -> None:
@@ -364,6 +391,58 @@ def chain_optimum(un, pw) -> float:
     return float((un[0][:, None] + M[0]).min())
 
 
+def grid_pairs(rows: int, cols: int, diagonals: bool = False, anti: bool = False) -> np.ndarray:
+    """Edges of a rows x cols grid in bench.py's order: horizontal, vertical,
+    then the diagonals and anti-diagonals asked for."""
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    parts = [(idx[:, :-1], idx[:, 1:]), (idx[:-1, :], idx[1:, :])]
+    if diagonals:
+        parts.append((idx[:-1, :-1], idx[1:, 1:]))
+    if anti:
+        parts.append((idx[:-1, 1:], idx[1:, :-1]))
+    return np.concatenate([np.stack([a.ravel(), b.ravel()], axis=1) for a, b in parts])
+
+
+def multicut_150k_instance():
+    """bench.py:397-433: a 200x250 grid with diagonals, 149101 edges, costs
+    N(0.6, 1) from seed 3."""
+    pairs = grid_pairs(200, 250, diagonals=True)
+    return pairs, np.random.default_rng(3).normal(loc=0.6, scale=1.0, size=len(pairs))
+
+
+def mrf_grid24_instance():
+    """bench.py:616-640: a 24x24 8-connected binary grid, normal unaries,
+    Potts weights U(0.2, 0.6) with a tenth of them negated (seed 7), as
+    dense pairwise factors."""
+    rng = np.random.default_rng(7)
+    un = rng.normal(size=(24 * 24, 2)) * 1.0
+    pairs = np.sort(grid_pairs(24, 24, diagonals=True, anti=True), axis=1)
+    w = rng.uniform(0.2, 0.6, size=len(pairs))
+    w[rng.random(len(pairs)) < 0.10] *= -1.0
+    return un, pairs, w[:, None, None] * (1.0 - np.eye(2))[None]
+
+
+def multicut_grid40_instance():
+    """bench.py:642-658: a 40x40 grid, costs N(0.4, 1) from seed 8."""
+    pairs = grid_pairs(40, 40)
+    return pairs, np.random.default_rng(8).normal(loc=0.4, scale=1.0, size=len(pairs))
+
+
+# the Solver settings of bench.py:616-658 (visitor keywords, Solver keywords)
+MRF_GRID24_SOLVER = (dict(max_iter=150, tighten=True, tighten_iteration=20, tighten_interval=60,
+                          tighten_slope=0.05, tighten_constraints_max=800),
+                     dict(rounding="restricted", schedule_mode="auto"))
+MULTICUT_GRID40_SOLVER = (dict(max_iter=200, tighten=True, tighten_iteration=10,
+                               tighten_interval=20, tighten_slope=0.05,
+                               tighten_constraints_max=600),
+                          dict(schedule_mode="auto"))
+
+
+def triplet_digest(triplets) -> str:
+    """Short digest of a constructor's triplets in the order they were added."""
+    return hashlib.sha256(np.asarray(list(triplets), dtype=np.int64).tobytes()).hexdigest()[:16]
+
+
 def build_chain(ctor: MrfConstructor, un, pw) -> None:
     ctor.add_unary_factors(un)
     n = un.shape[0]
@@ -554,6 +633,157 @@ def phase_engine_time(card: str, ec: Engine, eg: Engine, m: GridPottsModel) -> t
             for tag in ("chain", "grid")}, its["grid_kernel_path"]
 
 
+def timed_tighten(mc: MulticutConstructor, eng: Engine) -> tuple:
+    """``mc.tighten`` on ``eng``, its seconds split into pull (the edge
+    block to the host and into a cost per edge), add (triplets into the
+    graph) and search (the rest: BFS, candidate ranking), by timing the
+    constructor's own calls; and, apart, one copy of the edge block to the
+    host (the transfer inside pull)."""
+    spent = {"pull": 0.0, "add": 0.0}
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return wrapper
+    mc._reparametrized_edge_costs = timed("pull", mc._reparametrized_edge_costs)
+    mc._reparametrized_triplet_costs = timed("pull", mc._reparametrized_triplet_costs)
+    mc.add_triplet = timed("add", mc.add_triplet)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        n = mc.tighten(eng, max_constraints=500, max_candidates=2000)
+    finally:
+        for k in ("_reparametrized_edge_costs", "_reparametrized_triplet_costs", "add_triplet"):
+            del mc.__dict__[k]
+    total = time.perf_counter() - t
+    t = time.perf_counter()
+    host_array(eng.state["multicut_edge"]["c"])
+    transfer = time.perf_counter() - t
+    return n, {"total_s": total, "pull_s": spent["pull"], "add_s": spent["add"],
+               "search_s": total - spent["pull"] - spent["add"], "transfer_s": transfer}
+
+
+def phase_multicut_150k(card: str) -> dict:
+    """bench.py's multicut: one separation round on a fresh engine, a
+    rebuild, 100 anisotropic passes and GAEC, against the JAX package."""
+    pairs, costs = multicut_150k_instance()
+    s = Solver(device="cuda", dtype=torch.float32)
+    mc = s.add_constructor(MulticutConstructor)
+    mc.add_edges(pairs, costs)
+    eng, build_s = timed_engine(s.graph, schedule_mode="auto")
+    n, split = timed_tighten(mc, eng)
+    digest = triplet_digest(mc.triplets)
+    print(f"multicut 150k: {len(pairs)} edges, Engine build {build_s:.2f} s ({eng.schedule_mode}); "
+          f"tighten round {split['total_s']:.3f} s = pull {split['pull_s']:.3f} + search "
+          f"{split['search_s']:.3f} + add {split['add_s']:.3f} s (edge block to the host "
+          f"{split['transfer_s'] * 1e3:.3f} ms): {n} added, {len(mc.triplets)} "
+          f"triplets, {len(mc.edges)} edges, digest {digest}; JAX package {JAX_MC150K}")
+    got = {"triplets_added": n, "n_triplets": len(mc.triplets), "n_edges": len(mc.edges),
+           "digest": digest}
+    if any(got[k] != JAX_MC150K[k] for k in got):
+        fail(f"the separation round differs from the JAX package's: {got}")
+    eng, rebuild_s = timed_engine(s.graph, schedule_mode="auto")
+    reset_launch_counts()
+    prev = eng.lower_bound()
+    for i in range(1, MC150K_PASSES + 1):
+        eng.compute_pass("anisotropic")
+        if i % 25 == 0:
+            lb = eng.lower_bound()
+            print(f"multicut 150k: {i:3d} passes: lower bound {lb:.6f}")
+            if lb < prev - 1e-4 * abs(prev):
+                fail(f"multicut bound dropped from {prev} to {lb}")
+            prev = lb
+    if any(launch_counts().values()):
+        fail(f"the multicut engine launched grid kernels: {launch_counts()}")
+    t = time.perf_counter()
+    _, _, ub = mc.round_gaec()
+    gaec_s = time.perf_counter() - t
+    print(f"multicut 150k: after {MC150K_PASSES} passes lb {prev:.6f}, JAX package "
+          f"{JAX_MC150K['lb']}, rel diff {rel(prev, JAX_MC150K['lb']):.3e} (limit 1e-4); GAEC ub "
+          f"{ub!r} in {gaec_s:.2f} s, JAX package {JAX_MC150K['gaec_ub']!r}")
+    if not rel(prev, JAX_MC150K["lb"]) <= 1e-4:
+        fail(f"multicut bound {prev} is not within 1e-4 of the JAX package's")
+    if not abs(ub - JAX_MC150K["gaec_ub"]) <= 1e-9:
+        fail(f"GAEC ub {ub} differs from the JAX package's {JAX_MC150K['gaec_ub']}")
+    pass_ms = in_turns({"pass": lambda: eng.compute_pass("anisotropic")}, reps=5)["pass"]
+    host = host_ms(lambda: eng.compute_pass("anisotropic"), reps=5)
+    prof = profile_pass(lambda: eng.compute_pass("anisotropic"))
+    print(f"multicut 150k: one pass {pass_ms:.3f} ms ({1e3 / pass_ms:.1f} it/s, host enqueue "
+          f"{host:.3f} ms, events median of 3) on {card}")
+    print_profile("multicut 150k", prof, card)
+    return {**got, **split, "lb": prev, "gaec_ub": ub, "gaec_s": gaec_s, "build_s": build_s,
+            "rebuild_s": rebuild_s, "pass_ms": pass_ms, "host_enqueue_ms": host,
+            "idle_share": prof["idle_share"]}
+
+
+def solver_run(tag: str, s: Solver, ctor) -> dict:
+    """``s.solve()`` with the launch counters set to 0 just before and read
+    just after: the generic engine and tightening launch no hand-written
+    kernel."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    lb = s.solve()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    if any(launch_counts().values()):
+        fail(f"{tag}: the Solver run launched grid kernels: {launch_counts()}")
+    ub = s.primal_cost()
+    gap = (ub - lb) / max(1.0, abs(ub))
+    out = {"lb": lb, "ub": ub, "rel_gap": gap, "s": sec, "n_engine_builds": s.n_engine_builds,
+           "aux_n": s.aux.n, "n_triplets": len(ctor.triplets)}
+    print(f"{tag}: Solver.solve() in {sec:.2f} s: lb {lb:.6f}, ub {ub:.6f}, rel gap {gap:.3e}, "
+          f"{s.n_engine_builds} engine builds, aux.n {s.aux.n}, {len(ctor.triplets)} triplets")
+    return out
+
+
+def phase_tightening_solvers() -> dict:
+    """The tightening Solver runs of bench.py's solver_e2e, and the
+    frustrated 4-cycle of tests/test_cycle_separation.py."""
+    out = {}
+    vk, sk = MRF_GRID24_SOLVER
+    un, pairs, pw = mrf_grid24_instance()
+    s = Solver(visitor=StandardTighteningVisitor(**vk), device="cuda", dtype=torch.float32, **sk)
+    mrf = s.add_constructor(MrfConstructor)
+    mrf.add_unary_factors(un)
+    mrf.add_pairwise_factors(pairs, pw)
+    r = out["mrf_grid24"] = solver_run("mrf_grid24", s, mrf)
+    print(f"mrf_grid24: JAX package {JAX_GRID24}; lb rel diff {rel(r['lb'], JAX_GRID24['lb']):.3e} "
+          f"(limit 1e-4), rel gap limit 1e-4")
+    if not (rel(r["lb"], JAX_GRID24["lb"]) <= 1e-4 and r["rel_gap"] <= 1e-4):
+        fail(f"mrf_grid24: lb {r['lb']}, gap {r['rel_gap']}")
+
+    vk, sk = MULTICUT_GRID40_SOLVER
+    pairs, costs = multicut_grid40_instance()
+    s = Solver(visitor=StandardTighteningVisitor(**vk), device="cuda", dtype=torch.float32, **sk)
+    mc = s.add_constructor(MulticutConstructor)
+    mc.add_edges(pairs, costs)
+    r = out["multicut_grid40"] = solver_run("multicut_grid40", s, mc)
+    print(f"multicut_grid40: JAX package {JAX_GRID40}; rel gap limit 1e-2, lb <= ub + 1e-4|ub|")
+    if not (r["rel_gap"] <= 1e-2 and r["lb"] <= r["ub"] + 1e-4 * abs(r["ub"])):
+        fail(f"multicut_grid40: lb {r['lb']}, ub {r['ub']}, gap {r['rel_gap']}")
+
+    s = Solver(visitor=StandardTighteningVisitor(
+        max_iter=150, tighten=True, tighten_iteration=5, tighten_interval=10,
+        tighten_constraints_max=4, tighten_reparametrization="damped_uniform"),
+        device="cuda", dtype=torch.float32)
+    mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
+    for _ in range(4):
+        mrf.add_unary_factor(np.zeros(2))
+    disagree = np.eye(2)
+    mrf.add_pairwise_factor(0, 1, disagree)
+    for i, j in ((1, 2), (2, 3), (0, 3)):
+        mrf.add_pairwise_factor(i, j, 1.0 - disagree)
+    r = out["frustrated_4cycle"] = solver_run("frustrated 4-cycle", s, mrf)
+    if not abs(r["lb"] - 1.0) <= 1e-5:
+        fail(f"frustrated 4-cycle: lb {r['lb']}, not 1.0")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name, count, card = phase_device()
@@ -579,8 +809,11 @@ def main() -> None:
     t, kernel_path_its = phase_engine_time(card, ec, eg, m)
     engine = {"chain": chain | t["chain"], "grid": grid | t["grid"],
               "grid_kernel_path_its": kernel_path_its, "native_build_s": native_s, "card": card}
+    tightening = {"multicut_150k": phase_multicut_150k(card), **phase_tightening_solvers(),
+                  "card": card}
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"engine": engine}))
+    print(json.dumps({"tightening": tightening}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

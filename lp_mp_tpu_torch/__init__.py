@@ -7,27 +7,34 @@ kernels (``ops/grid_kernels``) written by hand in CUDA for sm_90a.  It also
 covers the generic message-passing engine (``Engine`` over a
 ``FactorGraph``) with the simplex and Potts factors and the
 unary-pairwise messages, driven by ``Solver`` and the visitors, with the
-MRF constructor and the UAI reader.  The package imports torch and numpy,
-never JAX and never ``lp_mp_tpu``.
+MRF constructor and the UAI reader, and with tightening: triplet search and
+odd-cycle separation for the MRF, the absorbing aux passes
+(``aux_tighten``) and ``Solver.tighten``.  The multicut model family
+(``MulticutConstructor``: edge, triplet and odd-wheel factors, cycle and
+wheel separation, GAEC rounding) runs on the same engine.  The package
+imports torch and numpy, never JAX and never ``lp_mp_tpu``.
 """
 from .config import (Chirality, Direction, LpControl, MessageSchedule,
                      ReparametrizationMode, eps_for, real_dtype, set_dtype)
-from .convert import (engine_state_from_numpy, engine_state_to_numpy,
-                      grid_state_from_numpy, sharded_state_from_jax)
+from .aux_tighten import AuxPasses
+from .convert import (aux_state_from_numpy, aux_state_to_numpy, engine_state_from_numpy,
+                      engine_state_to_numpy, grid_state_from_numpy, sharded_state_from_jax)
 from .engine import Engine
 from .graph import FactorGraph
 from .models.grid_potts import GridPottsModel, random_grid
 from .models.mrf import MrfConstructor
+from .models.multicut import MulticutConstructor
 from .parallel.grid import ShardedGridPotts
 from .solver import Solver
 from .visitors import StandardTighteningVisitor, StandardVisitor
 
 __all__ = [
     "Chirality", "Direction", "LpControl", "MessageSchedule",
-    "ReparametrizationMode", "eps_for", "real_dtype", "set_dtype",
-    "engine_state_from_numpy", "engine_state_to_numpy",
+    "ReparametrizationMode", "eps_for", "real_dtype", "set_dtype", "AuxPasses",
+    "aux_state_from_numpy", "aux_state_to_numpy", "engine_state_from_numpy",
+    "engine_state_to_numpy",
     "grid_state_from_numpy", "sharded_state_from_jax", "Engine", "FactorGraph",
-    "GridPottsModel", "random_grid", "MrfConstructor", "ShardedGridPotts", "Solver",
+    "GridPottsModel", "random_grid", "MrfConstructor", "MulticutConstructor", "ShardedGridPotts", "Solver",
     "StandardTighteningVisitor", "StandardVisitor",
 ]
 

@@ -9,12 +9,24 @@ packages share the dense layout, so this is a copy, not a relayout.
 state (numpy ``[L, R, C]`` arrays) and its ``geom``, and returns the same
 dense dict; ``ShardedGridPotts.load_state`` splits it over the port's shards.
 
+``host_array`` is the one device-to-host copy the host-side separation
+code makes per block: the tightening searches read ``engine.state`` through
+it, never row by row.
+
 ``engine_state_from_numpy`` takes the JAX ``Engine``'s state as numpy
 arrays, ``{type: {key: np.asarray(v)}}``, and returns the port's, for
 ``Engine.set_state``; ``engine_state_to_numpy`` goes the other way.  Both
 engines build the same blocks in the same layout, so this too is a copy:
 float lanes take ``dtype``, integer lanes (``nl``, ``n1``, ``n2``) stay
 integer.
+
+``aux_state_to_numpy`` reads the absorbed tightening triplets of either
+package's ``AuxPasses`` (its MRF and multicut passes: ``c``, ``lidx``,
+``active``, ``w_recv`` at capacity ``cap``, plus ``n``, ``fids`` and the
+MRF pass's label capacity ``dims``) into numpy, staged rows written first;
+``aux_state_from_numpy`` makes the port's ``AuxPasses`` from that, on
+``device`` in ``dtype``.  Both packages keep the same bucket layout, so
+this too is a copy; row indices become int64 in the port.
 """
 from __future__ import annotations
 
@@ -69,6 +81,54 @@ def engine_state_from_numpy(np_state, device="cpu", dtype=torch.float64):
     """Engine state ``{type: {key: numpy array}}`` -> the port's ``{type:
     {key: tensor}}`` on ``device``.  Always copies."""
     return {name: block_from_numpy(block, device, dtype) for name, block in np_state.items()}
+
+
+def host_array(t: torch.Tensor, dtype=None) -> np.ndarray:
+    """A copy of a tensor as a numpy array on the host, made in one transfer
+    (``dtype``: cast there, e.g. ``np.float64`` for the separation
+    searches).  Always a copy, so the caller may write into it."""
+    return np.array(t.detach().cpu().numpy(), dtype=dtype)
+
+
+def _numpy(v) -> np.ndarray:
+    """A JAX array or a torch tensor as a numpy copy."""
+    return host_array(v) if isinstance(v, torch.Tensor) else np.array(v)
+
+
+def aux_state_to_numpy(aux) -> dict:
+    """The absorbed state of an ``AuxPasses`` (the JAX package's or the
+    port's) as ``{"mrf": {...}, "mc": {...}}`` of numpy arrays and ints."""
+    out = {}
+    for part in ("mrf", "mc"):
+        p = getattr(aux, part)
+        p._sync()
+        st = {"cap": int(p.cap), "n": int(p.n), "fids": [int(f) for f in p.fids],
+              "dims": tuple(p._dims) if getattr(p, "_dims", None) else None}
+        for k in ("c", "lidx", "active", "w_recv"):
+            st[k] = None if getattr(p, k) is None else _numpy(getattr(p, k))
+        out[part] = st
+    return out
+
+
+def aux_state_from_numpy(np_state, device="cpu", dtype=torch.float64):
+    """The port's ``AuxPasses`` holding the state ``aux_state_to_numpy``
+    read, on ``device`` in ``dtype``."""
+    from .aux_tighten import AuxPasses
+    aux = AuxPasses()
+    device = torch.device(device)
+    for part in ("mrf", "mc"):
+        st, p = np_state[part], getattr(aux, part)
+        if not st["n"]:
+            continue
+        p.cap, p.n, p.fids = st["cap"], st["n"], list(st["fids"])
+        p._device, p._dtype = device, dtype
+        if part == "mrf":
+            p._dims = tuple(st["dims"])
+        for k in ("c", "active", "w_recv"):
+            setattr(p, k, torch.tensor(st[k], device=device, dtype=dtype))
+        p.lidx = torch.tensor(st["lidx"], device=device, dtype=torch.int64)
+        p._lidx_host = [tuple(r) for r in st["lidx"][:, :p.n].T.tolist()]
+    return aux
 
 
 def engine_state_to_numpy(state):

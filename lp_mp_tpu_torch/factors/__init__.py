@@ -1,1 +1,1 @@
-"""Factor types of the port: simplex (unary, pairwise, ternary) and compact Potts."""
+"""Factor types of the port: simplex (unary, pairwise, ternary), compact Potts and multicut."""

@@ -215,11 +215,22 @@ class MrfConstructor:
 
     # -- tightening ---------------------------------------------------------
     def tighten(self, engine, max_constraints: int) -> int:
-        """Triplet search and odd-cycle separation (models/tightening.py,
-        models/cycle_separation.py of the JAX package) are queue 1 item 4
-        of ROADMAP.md."""
-        raise NotImplementedError(
-            "MRF tightening is queue 1 item 4 of ROADMAP.md, not ported yet")
+        """Triplet search via frustrated-triangle scoring, then odd-cycle
+        separation on the k-projection graph when triangles alone find
+        nothing (test/graphical_model.cpp:191-246 acceptance: both the
+        3-cycle triplet search and the chordless frustrated 4-cycle must
+        close to lb 1.0 through Solve() alone).
+
+        For each triangle of pairwise factors, the guaranteed dual increase
+        of adding its triplet is lb(joint triple) - sum of independent
+        bounds; chordless frustrated cycles are found by the signed
+        projection-graph search (models/cycle_separation.py)."""
+        from .cycle_separation import cycle_search
+        from .tightening import triplet_search
+        added = triplet_search(self, engine, max_constraints)
+        if added < max_constraints:
+            added += cycle_search(self, engine, max_constraints - added)
+        return added
 
 
 # -- primal extraction -------------------------------------------------------

@@ -3,15 +3,17 @@
 Replicates ``Solver`` / ``MpRoundingSolver`` (solver.hxx:29-400):
 
     Begin -> { PreIterate(set repam) ; Iterate(ComputePass[AndPrimal]) ;
-               PostIterate(LowerBound) } while visitor continues
+               PostIterate(LowerBound, Tighten) } while visitor continues
           -> End -> RegisterPrimal -> best primal available.
 
-The engine runs on the solver's ``device`` in its ``dtype``.  A rebuild
-carries the current reparametrization over row-wise.  Tightening (with the
-absorbing aux passes), tree decomposition and the exact rounding oracles
-are later items of queue 1 in ROADMAP.md; asking for them raises
-``NotImplementedError``.  Without them, ``solve`` runs exactly the JAX
-``Solver``'s loop with an empty ``AuxPasses``.
+The engine runs on the solver's ``device`` in its ``dtype``.  Tightening
+grows the factor graph: additions that are triplets on existing pairwise
+or edge factors go into the bucketed side passes of ``aux_tighten``
+(``self.aux``, run after every engine pass); anything else rebuilds the
+engine with the current reparametrization carried over row-wise and the
+absorbed triplets folded back in.  Tree decomposition and the exact
+rounding oracles are later items of queue 1 in ROADMAP.md; asking for them
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,12 +21,11 @@ from typing import Any
 
 import torch
 
+from .aux_tighten import AuxPasses
 from .config import Direction
 from .engine import Engine
 from .graph import FactorGraph
 from .visitors import StandardVisitor
-
-_TIGHTENING = "tightening (with AuxPasses) is queue 1 item 4 of ROADMAP.md, not ported yet"
 
 
 class Solver:
@@ -61,6 +62,10 @@ class Solver:
         self.lower_bound_: float = float("-inf")
         self.best_primal_cost: float = float("inf")
         self.best_primal: Any = None
+        # incremental tightening (aux_tighten): absorbable triplet additions
+        # (MRF ternary or multicut triplets) go into bucketed side passes
+        # instead of a full engine rebuild
+        self.aux = AuxPasses()
         self.n_engine_builds = 0
 
     def add_constructor(self, ctor_cls, **kwargs):
@@ -87,24 +92,42 @@ class Solver:
                 for k, v in block.items():
                     sl = tuple(slice(0, s) for s in v.shape)
                     new_block[k][sl] = v.to(new_block[k].dtype)
+        # absorbed triplet duals become regular engine rows again
+        self.aux.fold_into(self.engine)
         return self.engine
 
     # ------------------------------------------------------------------
     def register_primal(self, prim) -> float:
         """Keep best feasible primal (solver.hxx:321-340).  Constructors may
-        veto primals the engine-level message checks cannot see."""
+        veto primals the engine-level message checks cannot see (e.g.
+        multicut cycle feasibility)."""
         for c in self.constructors:
             if hasattr(c, "check_primal_consistency") and \
                     not c.check_primal_consistency(self.engine, prim):
                 return float("inf")
         cost = self.engine.evaluate_primal(prim)
+        if self.aux:
+            cost += self.aux.evaluate_primal(self.engine, prim)
         if cost < self.best_primal_cost:
             self.best_primal_cost = cost
             self.best_primal = prim
         return cost
 
     def tighten(self, max_constraints: int) -> int:
-        raise NotImplementedError(_TIGHTENING)
+        """Fan out to constructors implementing tighten() (solver.hxx:192-212).
+
+        Additions that are triplets on existing dense pairwise (or multicut
+        edge) factors are absorbed into the bucketed aux passes; anything
+        else (new chord factors, other types) triggers a full engine
+        rebuild."""
+        n0, m0 = self.graph.n_factors, len(self.graph.messages)
+        added = 0
+        for c in self.constructors:
+            if hasattr(c, "tighten"):
+                added += c.tighten(self.engine, max_constraints - added)
+        if added and not self.aux.absorb(self.graph, self.engine, n0, m0):
+            self.build_engine()
+        return added
 
     # ------------------------------------------------------------------
     def solve(self) -> float:
@@ -129,13 +152,15 @@ class Solver:
                         self.register_primal(ctor.compute_primal(self.engine))
             else:
                 self.engine.compute_pass(c.repam)
+            if self.aux:
+                self.aux.run(self.engine)
             # PostIterate (solver.hxx:277-287)
             if c.compute_lower_bound:
-                self.lower_bound_ = self.engine.lower_bound()
+                self.lower_bound_ = self.engine.lower_bound() + self.aux.lower_bound()
             if c.tighten:
-                raise NotImplementedError(_TIGHTENING)
+                self.tighten(c.tighten_constraints)
             c = self.visitor.visit(c, self.lower_bound_, self.best_primal_cost)
-        self.lower_bound_ = self.engine.lower_bound()
+        self.lower_bound_ = self.engine.lower_bound() + self.aux.lower_bound()
         self.visitor.end(self.lower_bound_, self.best_primal_cost)
         return self.lower_bound_
 

@@ -214,7 +214,10 @@ def test_port_imports_no_jax():
             "lp_mp_tpu_torch.registry, lp_mp_tpu_torch.native, lp_mp_tpu_torch.factors.simplex, "
             "lp_mp_tpu_torch.factors.potts, lp_mp_tpu_torch.messages.simplex_marginalization, "
             "lp_mp_tpu_torch.messages.pairwise_triplet, lp_mp_tpu_torch.models.mrf, "
-            "lp_mp_tpu_torch.io.uai, chip_smoke; "
+            "lp_mp_tpu_torch.io.uai, lp_mp_tpu_torch.aux_tighten, lp_mp_tpu_torch.factors.multicut, "
+            "lp_mp_tpu_torch.messages.multicut, lp_mp_tpu_torch.models.multicut, "
+            "lp_mp_tpu_torch.models.tightening, lp_mp_tpu_torch.models.cycle_separation, "
+            "lp_mp_tpu_torch.utils.graphs, lp_mp_tpu_torch.utils.union_find, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lp_mp_tpu')]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

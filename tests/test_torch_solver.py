@@ -8,8 +8,8 @@ package's, on the CPU in float64.
 - The UAI chain of tests/test_uai.py: lb 0.564 and labeling [0, 0, 2].
 - The copied ``schedule.py`` and ``graph.py``: the same orders, phases and
   weights as arrays.
-- What is not ported yet (tightening, trees, exact rounding) raises
-  ``NotImplementedError``.
+- What is not ported yet (trees, exact rounding) raises
+  ``NotImplementedError``; the visitor's tighten control tightens.
 """
 import numpy as np
 import pytest
@@ -242,18 +242,21 @@ def test_unported_features_raise():
         Solver(tree_decomposition=[[0]])
     with pytest.raises(NotImplementedError, match="item 9"):
         Solver(exact_rounding="ilp")
+    # tightening is ported: on the UAI chain (no triangle, no cycle) it adds nothing
     s = Solver()
     mrf = s.add_constructor(MrfConstructor)
     parse_and_build(UAI_TEST_INPUT, mrf)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        s.tighten(5)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        mrf.tighten(s.build_engine(), 5)
+    assert mrf.tighten(s.build_engine(), 5) == 0
+    assert s.tighten(5) == 0 and s.n_engine_builds == 1 and not s.aux
 
 
 def test_tightening_visitor_control_raises():
+    """The visitor's tighten control no longer raises: it runs
+    ``Solver.tighten`` every iteration, which on the chain adds nothing, so
+    the solve ends as the untightened one does (lb 0.564)."""
     s = Solver(visitor=StandardTighteningVisitor(max_iter=10, tighten=True, tighten_iteration=1,
                                                  tighten_interval=1))
-    parse_and_build(UAI_TEST_INPUT, s.add_constructor(MrfConstructor))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        s.solve()
+    mrf = s.add_constructor(MrfConstructor)
+    parse_and_build(UAI_TEST_INPUT, mrf)
+    assert abs(s.solve() - 0.564) < 1e-8
+    assert not mrf.triplets and s.n_engine_builds == 1
