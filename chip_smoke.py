@@ -12,7 +12,10 @@ lower_bound and round_primal; the same grid through
 ShardedGridPotts.run_fast at 1 and 4 shards on the one card, held against
 the dense path; and the uniform schedule through the v1 contract.  Checks
 the bounds against the JAX package's, times each path and kernel against its
-plain or dense counterpart, and prints one line per phase.
+plain or dense counterpart and against its bound (the bytes a launch must
+move at 3.35 TB/s, or its float32 operations at 67 TFLOP/s, whichever is
+longer), reads each kernel's device time inside run_fast(20) under
+torch.profiler, and prints one line per phase.
 
 Then the generic engine path, plain PyTorch on the card in float32: a chain
 of 100000 variables with 8 labels built through MrfConstructor's batch
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -67,7 +71,7 @@ from lp_mp_tpu_torch.ops import _cuda_build
 from lp_mp_tpu_torch.ops.grid_kernels import (launch_counts, phase_update, phase_update_ref,
                                               phase_update_sharded, phase_update_sharded_ref,
                                               phase_update_v1, reset_launch_counts,
-                                              round_update, round_update_ref,
+                                              round_tile, round_update, round_update_ref,
                                               round_update_sharded, round_update_sharded_ref)
 
 H, W, L, SEED = 1000, 1000, 4, 1
@@ -315,6 +319,48 @@ def phase_v1_path() -> dict:
     return counts
 
 
+# float32 operations per label of one cell update: per incident edge one min
+# and one max for the min statistics, a compare, select, add and min for the
+# marginal, the add into the cell and two for its slot; three for the cell
+OPS_PER_LABEL_UPDATE = 4 * 8 + 3
+FP32_OPS_PER_S = 67e12          # H100 SXM data sheet, float32 outside the tensor cores
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def launch_bound(in_bytes: int, out_bytes: int, updates: int) -> tuple:
+    """(bound_ms, bound_by): the least time for a launch that reads its
+    inputs once, writes its outputs once and makes ``updates`` cell-label
+    updates, at 3.35 TB/s and 67 TFLOP/s float32."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = updates * OPS_PER_LABEL_UPDATE / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_name(name: str) -> str:
+    """``grid_round_kernel<2, false>`` from a demangled CUDA kernel name."""
+    m = re.search(r"(\w+_kernel)<([^>]*)>", name)
+    return f"{m.group(1)}<{m.group(2)}>" if m else name[:60]
+
+
+def kernel_device_us(fn) -> dict:
+    """Device time of each CUDA kernel in one call of ``fn`` under
+    torch.profiler: {kernel name: (total us, launches)}."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            tot, cnt = out.get(e.name, (0.0, 0))
+            out[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    return out
+
+
 def phase_time(card: str) -> dict:
     u, hc, vc = random_grid(H, W, L, seed=SEED)
     mk = GridPottsModel(u, hc, vc, device="cuda", dtype=torch.float32)
@@ -342,6 +388,11 @@ def phase_time(card: str) -> dict:
     print(f"time: run_fast({n}) at {H}x{W} L={L}: " + ", ".join(
         f"{k} {n / v * 1e3:.1f} it/s ({v:.3f} ms, host enqueue {host[k]:.3f} ms)"
         for k, v in t.items()) + f" (median of 3, CUDA events) on {card}")
+    for k, fn in fns.items():
+        dev = kernel_device_us(fn)
+        print(f"time: {k} run_fast({n}) device time by kernel under torch.profiler: " + ", ".join(
+            f"{kernel_name(name)} {us:.1f} us / {cnt} = {us / cnt:.1f} us"
+            for name, (us, cnt) in sorted(dev.items(), key=lambda kv: -kv[1][0])) + f" on {card}")
 
     s, hcc, vcc = mk.state, mk.hc, mk.vc
     one = sharded[1]
@@ -349,6 +400,19 @@ def phase_time(card: str) -> dict:
     sl = one.layout.slabs(one.windows)[0]
     win = (w, sl, c["hc"], c["vc"], cs, 0, H, W)
     v1 = torch.tensor([0, 1, 0], dtype=torch.int32)
+    dense_in = nbytes([*s.values(), hcc, vcc])
+    dense_out = nbytes(s.values())
+    win_in = nbytes([*w.values(), *(x for pair in sl.values() for x in pair), c["hc"], c["vc"],
+                     *cs["hc"], *cs["vc"]])
+    win_out = nbytes(w.values())
+    cells = H * W * L                   # cell-label pairs; a phase updates the cells of one colour
+    updates = {"phase_update": cells // 2, "phase_update_v1": cells // 2,
+               "phase_update_sharded": cells // 2, "round_update": 2 * cells,
+               "round_update_sharded": 2 * cells}
+    tile = round_tile(L, 2)
+    print(f"time: round kernel tile at L={L}, n_rounds=2: {tile['rows']} x {tile['cols']} cells "
+          f"written per block, {tile['rows_loaded']} x {tile['cols_loaded']} loaded, "
+          f"{tile['threads']} threads, {tile['smem']} B of shared memory")
     times = {}
     for name, kern, plain in (
             ("phase_update", lambda: phase_update(s, hcc, vcc, 0, 1, 0.0),
@@ -362,11 +426,16 @@ def phase_time(card: str) -> dict:
             ("round_update_sharded", lambda: round_update_sharded(*win, 2),
              lambda: round_update_sharded_ref(*win, 2))):
         t = in_turns({"plain": plain, "kernel": kern}, reps=20)
-        times[name] = (t["kernel"], t["plain"])
+        sharded = "sharded" in name
+        bound_ms, bound_by = launch_bound(win_in if sharded else dense_in,
+                                          win_out if sharded else dense_out, updates[name])
+        times[name] = {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": None}
         print(f"time: {name} kernel {t['kernel'] * 1e3:.1f} us/launch "
               f"({launch_bytes / t['kernel'] / 1e6:.1f} GB/s, host enqueue "
-              f"{host_ms(kern, reps=20) * 1e3:.1f} us), plain {t['plain'] * 1e3:.1f} us "
-              f"at {H}x{W} L={L}{' (1 shard)' if 'sharded' in name else ''} on {card}")
+              f"{host_ms(kern, reps=20) * 1e3:.1f} us), plain {t['plain'] * 1e3:.1f} us, bound "
+              f"{bound_ms * 1e3:.1f} us ({bound_by}; no single PyTorch call computes a Potts "
+              f"phase) at {H}x{W} L={L}{' (1 shard)' if sharded else ''} on {card}")
     return times
 
 
@@ -800,8 +869,7 @@ def main() -> None:
     counts["phase_update_v1"] = phase_v1_path()["phase_update_v1"]
     times = phase_time(card)
     kernels = [{"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-                "launches": counts[k], "max_abs_err": worst[k],
-                "ms": times[k][0], "plain_ms": times[k][1]}
+                "launches": counts[k], "max_abs_err": worst[k], **times[k]}
                for k in REPLACES]
     native_s = phase_native()
     ec, chain = phase_engine_chain()

@@ -142,6 +142,19 @@ def set_dtype(dtype: "torch.dtype | None") -> None:
     _DTYPE = dtype
 
 
+def entry_device(device) -> torch.device:
+    """The device of an entry point (``GridPottsModel``, ``Engine``,
+    ``Solver``, ``ShardedGridPotts``), which run on the card unless the
+    caller asks for the CPU.  A CUDA device that is not there raises: the
+    port never falls back to the CPU in silence."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} asked for, but no CUDA device is present "
+                           "(torch.cuda.is_available() is false); pass device='cpu' "
+                           "(devices=['cpu'] for ShardedGridPotts) to run on the CPU")
+    return dev
+
+
 def real_dtype(device="cpu") -> torch.dtype:
     """Compute dtype for dual costs on ``device`` (reference REAL,
     config.hxx:28)."""

@@ -44,37 +44,64 @@
 // the L1 cache serves.
 //
 // grid_round_kernel: NR full anisotropic rounds (red phase, black phase,
-// repeated) in one launch, so the bytes per iteration fall by 2*NR.  A
-// block owns a T x T tile of cells and loads the tile plus a halo of
-// P = 2*NR cells on every side (S = T + 2P per side) into shared memory,
-// with the edge slots of those cells.  It runs the P phases in place there
-// with __syncthreads() between them (in one phase only cells of one colour
-// update, and no two of them share an edge, so in-place is race-free), then
-// writes only the centre.  The valid region shrinks by one ring per phase:
-// a cell's phase-k update reads its neighbours' slots from phase k-1, so the
-// halo cells go stale from the outside in, and after P phases the centre is
-// still exact.  Cells on the true grid edge lose nothing (missing edges do
-// not exist).  In a shard, rows beyond the slabs are loaded as absent: they
-// lie more than P <= kSlab rows from the window, so their staleness never
-// reaches it.  Costs are read through the read-only cache.
-// Tile: T = 16 while the tile's shared memory, 5*L*S*S*4 bytes, stays within
-// 96 KB (two blocks per SM), else T = 8; L above kMaxRoundLabels is refused.
-// At L=4: NR=2 gives S=24, 46 KB and 2.25x recomputed cells (S*S / T*T);
-// NR=1 gives S=20, 32 KB and 1.56x.  The centre's loads and stores of
-// neighbouring tiles overlap only in the halo, which mostly hits L2.
+// repeated) in one launch, so the bytes per iteration fall by 2*NR.  A block
+// writes a T_r x T_c tile of cells and loads it with a halo of P = 2*NR
+// cells on every side (S_r x S_c = (T_r + 2P) x (T_c + 2P)) into shared
+// memory, every edge slot at the cell that owns it, with the costs of each
+// cell's right and lower edge.  It runs the P phases in place there with one
+// __syncthreads() after each (in one phase only cells of one colour update,
+// and no two of them share an edge, so in-place is race-free), then writes
+// the T_r x T_c cells.  A cell's phase-k update reads its neighbours' slots
+// from phase k-1, so phase k only updates the cells within P - k of the
+// written tile: the ones the written tile still depends on; cells on the
+// true grid edge lose nothing (missing edges do not exist).  In a shard,
+// rows beyond the slabs load as absent: they lie more than P <= kSlab rows
+// from the window, so nothing read from them reaches it.
+// What bounds it: the 167.86 MB a launch must move at 1000x1000, L=4 (50.1
+// us at 3.35 TB/s).  It does not reach that bound.  Against what held the
+// first version (16 x 16 tiles) to 21 % of it:
+//  - Tiles sized by the arithmetic: a cell costs (5L + 2) * 4 bytes (88 at
+//    L=4) and two blocks share an SM's 228 KB.  Default at L=4, NR=2: T =
+//    12 x 56, S = 20 x 64, 113 KB: 1.90x the written cells loaded and 1.32x
+//    updated (the phases shrink), against 2.25x for both before.  The tile
+//    narrows to 24 or 8 columns as L grows and takes one block per SM where
+//    two do not fit (L = 32: T = 14 x 8); L above kMaxRoundLabels is
+//    refused.  Tile origins sit on multiples of 4 columns.
+//  - Copies by cp.async (cp_async.cuh) straight into shared memory, all in
+//    flight together, with zero fill for absent cells and edges, and the
+//    row bookkeeping done once per row for all labels; costs staged once.
+//  - Colour-split planes: the cells of one colour in a tile row are
+//    consecutive floats, and their neighbours sit at the same offsets in
+//    the other colour's half, 16 banks away: no bank conflicts in the phases
+//    or the write-out.  One thread per cell of a colour in a tile row (640
+//    threads at L=4), streaming stores.
+// On the H100 (round_tile_sweep.py) the copies are bound by requests in
+// flight (4-byte copies: hm1, hm2 and hc rows have W - 1 floats, so their
+// rows are not 16-byte aligned) and the phases by latency; the two blocks of
+// an SM run in step, so neither hides the other.  Tried and slower: a
+// persistent block per SM with two tile buffers; bulk copies (TMA) into
+// padded rows plus an in-place rearrangement into colour order; two warp
+// groups with their own buffers, one tile apart.
 // Rounding: the products that feed an add go through __fmul_rn, which the
 // compiler never contracts into an FMA, so both kernels round like the plain
 // torch ops, one IEEE operation at a time.
-// Correct first: no cp.async/TMA staging yet, and the tile is not tuned.
 
 #include <cuda_runtime.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
 constexpr int kMaxRoundLabels = 32;
-constexpr int kRoundSmemBudget = 96 * 1024;
 constexpr int kSlab = 4;  // slab rows per side; covers the round kernel's halo P <= 4
 constexpr float kBig = 3e38f;
+// Round kernel tiles.  An SM has 228 KB of shared memory and keeps 1 KB per
+// block; a block may take 227 KB.
+constexpr size_t kRoundSmemTwoBlocks = (228 * 1024 - 2 * 1024) / 2;
+constexpr size_t kRoundSmemOneBlock = 227 * 1024;
+constexpr int kRoundMaxThreads = 640;  // one thread per cell of a colour in a tile row
+constexpr int kRoundWidths[3] = {56, 24, 8};  // columns written, multiples of 4 (16 bytes)
+constexpr int kRoundMinRows = 4;
 
 // One input array's rows, addressed by window row r.
 struct Rows {
@@ -126,27 +153,22 @@ __device__ __forceinline__ float* out_at(const OutRows& o, int l, int r, int c) 
   return o.p + l * o.ls + (long)(r - o.shift) * o.width + c;
 }
 
-// Min statistics of a Potts edge's "other" slot over the labels: the min m
-// and the value min_except takes at the min's positions (the second min, or
-// m itself when the min occurs twice: pallas_grid.py:52-61).
+// Min statistics of a Potts edge's "other" slot over the labels, in one
+// pass: the min m and the value min_except takes at the min's positions (the
+// second smallest value, or m itself when the min occurs twice:
+// pallas_grid.py:52-61).
 struct MinExcept {
   float m, s;
 };
 
 __device__ __forceinline__ MinExcept min_except_stats(const float* other, long stride, int L) {
-  float m = other[0];
-  for (int l = 1; l < L; ++l) m = fminf(m, other[l * stride]);
-  int cnt = 0;
-  float s = kBig;
-  for (int l = 0; l < L; ++l) {
+  float m = other[0], s = kBig;
+  for (int l = 1; l < L; ++l) {
     const float v = other[l * stride];
-    if (v == m) {
-      ++cnt;
-    } else {
-      s = fminf(s, v);
-    }
+    s = fminf(s, fmaxf(m, v));
+    m = fminf(m, v);
   }
-  return {m, cnt > 1 ? m : s};
+  return {m, s};
 }
 
 // Potts marginal toward `own`'s side for one label (factors/potts.py):
@@ -245,131 +267,202 @@ __global__ void grid_phase_kernel(const Grid g, int recv_color, int send_color, 
 // ---------------------------------------------------------------------------
 __host__ __device__ constexpr int round_halo(int nr) { return 2 * nr; }
 
-inline int round_tile(int L, int nr) {
+// A round launch's tile: T_r x T_c cells written, S_r x S_c cells loaded (a
+// halo of P = 2 * NR on every side), blocks of (S_c / 2) x rb threads.
+struct RoundTile {
+  int tr, tc;   // rows and columns written
+  int sr, sc;   // rows and columns loaded
+  int hw;       // cells of one colour in a tile row: S_c / 2, the block's x extent
+  int rb;       // thread rows, the block's y extent
+  int hp;       // floats of one colour half-plane: S_r * hw, padded to 16 mod 32
+  size_t smem;  // dynamic shared memory: (5 L + 2) planes of 2 * hp floats
+};
+
+RoundTile make_round_tile(int L, int nr, int tr, int tc) {
   const int p = round_halo(nr);
-  const int s16 = 16 + 2 * p;
-  return 5L * L * s16 * s16 * 4 <= kRoundSmemBudget ? 16 : 8;
+  RoundTile t;
+  t.tr = tr;
+  t.tc = tc;
+  t.sr = tr + 2 * p;
+  t.sc = tc + 2 * p;
+  t.hw = t.sc / 2;
+  const int max_rb = t.hw < kRoundMaxThreads ? kRoundMaxThreads / t.hw : 1;
+  const int passes = (t.sr + max_rb - 1) / max_rb;
+  t.rb = (t.sr + passes - 1) / passes;
+  const int base = t.sr * t.hw;
+  t.hp = base + ((16 - base % 32) + 32) % 32;  // the two halves 16 banks apart
+  t.smem = (5 * (size_t)L + 2) * 2 * t.hp * sizeof(float);
+  return t;
 }
 
-inline size_t round_smem_bytes(int L, int nr, int T) {
-  const size_t S = T + 2 * round_halo(nr);
-  return 5 * (size_t)L * S * S * sizeof(float);
+bool round_tile_ok(const RoundTile& t) {
+  return t.tr >= 1 && t.tc >= 2 && t.tc % 2 == 0 && t.hw * t.rb <= kRoundMaxThreads &&
+         t.smem <= kRoundSmemOneBlock;
+}
+
+// The default tile: the widest column count of kRoundWidths whose tile, with
+// as many rows as fit, writes at least kRoundMinRows rows in the shared
+// memory of two blocks per SM, else of one.
+RoundTile round_tile(int L, int nr) {
+  const size_t budgets[2] = {kRoundSmemTwoBlocks, kRoundSmemOneBlock};
+  for (const size_t budget : budgets) {
+    for (const int tc : kRoundWidths) {
+      int tr = 0;
+      while (make_round_tile(L, nr, tr + 1, tc).smem <= budget) ++tr;
+      if (tr >= kRoundMinRows) return make_round_tile(L, nr, tr, tc);
+    }
+  }
+  return make_round_tile(L, nr, 1, kRoundWidths[2]);  // not reached for L <= kMaxRoundLabels
+}
+
+// Asynchronous copies of one array's tile rows into its colour-split planes:
+// tile cell (i, j) at plane + ((i + j) & 1) * hp + i * hw + j / 2.  Column c
+// of a tile row reads source column c + c_off where c_lo <= c < c_hi; `edge`
+// keeps only the rows with an edge below (1) or above (2).  Everything else,
+// and every row that does not exist or cannot be read, is 0.  A thread copies
+// the columns tx and tx + hw of its rows, every label of a row in turn.
+template <bool kSharded>
+__device__ __forceinline__ void load_array(float* dst, const Rows& a, int labels, const Grid& g,
+                                           const RoundTile& t, int R0, int C0, int c_lo,
+                                           int c_hi, int c_off, int edge) {
+  const int plane = 2 * t.hp;
+  const int j0 = threadIdx.x, j1 = threadIdx.x + t.hw;
+  const int c0 = C0 + j0, c1 = C0 + j1;
+  const bool col0 = c0 >= c_lo && c0 < c_hi, col1 = c1 >= c_lo && c1 < c_hi;
+  for (int i = threadIdx.y; i < t.sr; i += blockDim.y) {
+    const int r = R0 + i, gr = g.row0 + r;
+    const bool row_ok = gr >= 0 && gr < g.H && readable<kSharded>(g, r) &&
+                        (edge != 1 || gr < g.H - 1) && (edge != 2 || gr > 0);
+    const bool ok0 = row_ok && col0, ok1 = row_ok && col1;
+    const float* s0 = g.u.win;  // any valid address: nothing is read where !ok
+    const float* s1 = g.u.win;
+    long ls = 0;
+    if (row_ok) {
+      const RowPtr rp = row<kSharded>(a, g.n, r);
+      if (ok0) s0 = rp.p + c_off + c0;
+      if (ok1) s1 = rp.p + c_off + c1;
+      ls = rp.ls;
+    }
+    const long ls0 = ok0 ? ls : 0, ls1 = ok1 ? ls : 0;
+    float* d0 = dst + ((i + j0) & 1) * t.hp + i * t.hw + (j0 >> 1);
+    float* d1 = dst + ((i + j1) & 1) * t.hp + i * t.hw + (j1 >> 1);
+    for (int l = 0; l < labels; ++l) {
+      cp_async_f32(d0 + l * plane, s0 + l * ls0, ok0);
+      cp_async_f32(d1 + l * plane, s1 + l * ls1, ok1);
+    }
+  }
 }
 
 template <int NR, bool kSharded>
-__global__ void grid_round_kernel(const Grid g, int T) {
+__global__ void __launch_bounds__(kRoundMaxThreads, 2) grid_round_kernel(const Grid g,
+                                                                         const RoundTile t) {
   constexpr int P = round_halo(NR);
   static_assert(P <= kSlab, "the slabs cover the round kernel's halo");
   const int L = g.L, H = g.H, W = g.W, n = g.n;
-  const int S = T + 2 * P;  // even: T and P are
-  const int plane = S * S;
+  const int HW = t.hw, PL = 2 * t.hp;  // PL: floats per label plane
+  const int tx = threadIdx.x, ty = threadIdx.y, RB = blockDim.y;
   extern __shared__ float smem[];
+  // every slot at its owner cell
   float* s_u = smem;
-  float* s_h1 = s_u + L * plane;
-  float* s_h2 = s_h1 + L * plane;
-  float* s_v1 = s_h2 + L * plane;
-  float* s_v2 = s_v1 + L * plane;
+  float* s_a = s_u + L * PL;  // own slot of the edge to the right: hm1 (r, c)
+  float* s_b = s_a + L * PL;  // own slot of the edge to the left: hm2 (r, c - 1)
+  float* s_d = s_b + L * PL;  // own slot of the edge below: vm1 (r, c)
+  float* s_t = s_d + L * PL;  // own slot of the edge above: vm2 (r - 1, c) in the dense layout
+  float* s_hc = s_t + L * PL;  // cost of the edge to the right
+  float* s_vc = s_hc + PL;     // cost of the edge below
 
   // tile origin in window coordinates (may lie outside: those cells are absent)
-  const int R0 = blockIdx.y * T - P, C0 = blockIdx.x * T - P;
-
-  // load cells and edge slots; smem edge (i,j) is the grid edge leaving cell
-  // (R0+i, C0+j) to the right (h) or downwards (v)
-  // (one thread per tile position, labels in the inner loop, so each row
-  // lookup serves all L labels)
-  for (int k = threadIdx.x; k < plane; k += blockDim.x) {
-    const int i = k / S, j = k - i * S;
-    const int r = R0 + i, c = C0 + j, gr = g.row0 + r;
-    const bool in_r = gr >= 0 && gr < H && readable<kSharded>(g, r), in_c = c >= 0 && c < W;
-    const bool cell = in_r && in_c, he = in_r && c >= 0 && c < W - 1;
-    const bool ve = cell && gr < H - 1, ve2 = ve && readable<kSharded>(g, r + 1);
-    const RowPtr none{nullptr, 0};
-    const RowPtr pu = cell ? row<kSharded>(g.u, n, r) : none;
-    const RowPtr ph1 = he ? row<kSharded>(g.hm1, n, r) : none;
-    const RowPtr ph2 = he ? row<kSharded>(g.hm2, n, r) : none;
-    const RowPtr pv1 = ve ? row<kSharded>(g.vm1, n, r) : none;
-    const RowPtr pv2 = ve2 ? row<kSharded>(g.vm2, n, r + 1) : none;
-    for (int l = 0; l < L; ++l) {
-      const int o = l * plane + k;
-      s_u[o] = cell ? at(pu, l, c) : 0.0f;
-      s_h1[o] = he ? at(ph1, l, c) : 0.0f;
-      s_h2[o] = he ? at(ph2, l, c) : 0.0f;
-      s_v1[o] = ve ? at(pv1, l, c) : 0.0f;
-      s_v2[o] = ve2 ? at(pv2, l, c) : 0.0f;
-    }
-  }
+  const int R0 = blockIdx.y * t.tr - P, C0 = blockIdx.x * t.tc - P;
+  load_array<kSharded>(s_u, g.u, L, g, t, R0, C0, 0, W, 0, 0);
+  load_array<kSharded>(s_a, g.hm1, L, g, t, R0, C0, 0, W - 1, 0, 0);
+  load_array<kSharded>(s_b, g.hm2, L, g, t, R0, C0, 1, W, -1, 0);
+  load_array<kSharded>(s_d, g.vm1, L, g, t, R0, C0, 0, W, 0, 1);
+  load_array<kSharded>(s_t, g.vm2, L, g, t, R0, C0, 0, W, 0, 2);
+  load_array<kSharded>(s_hc, g.hc, 1, g, t, R0, C0, 0, W - 1, 0, 0);
+  load_array<kSharded>(s_vc, g.vc, 1, g, t, R0, C0, 0, W, 0, 1);
+  cp_async_wait_all();
   __syncthreads();
 
-  const int half = S / 2;
+  // Phase k (1..P) updates the cells of one colour within P - k of the
+  // written tile: the ones the written tile still depends on.  Those cells
+  // are one colour half-plane, so a thread row reads and writes consecutive
+  // floats, and their neighbours lie in the other half at the same offsets.
+  const int shift = (g.row0 + R0 + C0) & 1;  // global parity of local cell (0, 0)
 #pragma unroll 1
-  for (int ph = 0; ph < P; ++ph) {
-    const int parity = (ph & 1) ? 0 : 1;  // red (odd r+c) first, then black
-    for (int k = threadIdx.x; k < S * half; k += blockDim.x) {
-      const int i = k / half;
-      const int j0 = 2 * (k - i * half);
-      const int r = R0 + i, gr = g.row0 + r;
-      const int j = j0 + ((parity ^ (gr + C0)) & 1);  // (gr + C0 + j) % 2 == parity
-      const int c = C0 + j;
-      if (gr < 0 || gr >= H || c < 0 || c >= W || !readable<kSharded>(g, r)) continue;
-      const int s = i * S + j;
-      // edges present in the tile; a tile-border cell that misses one is
-      // stale after this phase, which the halo absorbs
-      const bool right = c < W - 1, left = c > 0 && j > 0;
-      const bool down = gr < H - 1, up = gr > 0 && i > 0 && readable<kSharded>(g, r - 1);
-      const float deg =
-          (float)(c < W - 1) + (float)(c > 0) + (float)(gr < H - 1) + (float)(gr > 0);
+  for (int k = 1; k <= P; ++k) {
+    const int q = (k & 1) ^ shift;  // half-plane that updates: red (odd r + c) first
+    const int own0 = q * t.hp, oth0 = (q ^ 1) * t.hp;
+    for (int i = k + ty; i < t.sr - k; i += RB) {
+      const int b = (q ^ i) & 1;
+      const int j = 2 * tx + b;
+      const int r = R0 + i, gr = g.row0 + r, c = C0 + j;
+      if (j < k || j >= t.sc - k || gr < 0 || gr >= H || c < 0 || c >= W ||
+          !readable<kSharded>(g, r)) {
+        continue;
+      }
+      const bool right = c < W - 1, left = c > 0, down = gr < H - 1, up = gr > 0;
+      const float deg = (float)right + (float)left + (float)down + (float)up;
       const float omega = 1.0f / fmaxf(deg, 1.0f);
-      const float cr = right ? at(row<kSharded>(g.hc, n, r), 0, c) : 0.0f;
-      const float cl = left ? at(row<kSharded>(g.hc, n, r), 0, c - 1) : 0.0f;
-      const float cd = down ? at(row<kSharded>(g.vc, n, r), 0, c) : 0.0f;
-      const float cu = up ? at(row<kSharded>(g.vc, n, r - 1), 0, c) : 0.0f;
+      const float keep = 1.0f - __fmul_rn(omega, deg);
+      const int own = own0 + i * HW + tx;
+      const int nr = oth0 + i * HW + tx + b;  // cell (i, j + 1); (i, j - 1) is nr - 1
+      const int nd = oth0 + (i + 1) * HW + tx, nu = oth0 + (i - 1) * HW + tx;
       MinExcept st_r{0.0f, 0.0f}, st_l{0.0f, 0.0f}, st_d{0.0f, 0.0f}, st_u{0.0f, 0.0f};
-      if (right) st_r = min_except_stats(s_h2 + s, plane, L);
-      if (left) st_l = min_except_stats(s_h1 + s - 1, plane, L);
-      if (down) st_d = min_except_stats(s_v2 + s, plane, L);
-      if (up) st_u = min_except_stats(s_v1 + s - S, plane, L);
+      if (right) st_r = min_except_stats(s_b + nr, PL, L);
+      if (left) st_l = min_except_stats(s_a + nr - 1, PL, L);
+      if (down) st_d = min_except_stats(s_t + nd, PL, L);
+      if (up) st_u = min_except_stats(s_d + nu, PL, L);
+      const float cr = right ? s_hc[own] : 0.0f, cl = left ? s_hc[nr - 1] : 0.0f;
+      const float cd = down ? s_vc[own] : 0.0f, cu = up ? s_vc[nu] : 0.0f;
+      float *pu = s_u + own, *pa = s_a + own, *pb = s_b + own, *pd = s_d + own, *pt = s_t + own;
+      const float *qr = s_b + nr, *ql = s_a + nr - 1, *qd = s_t + nd, *qu = s_d + nu;
+#pragma unroll 4
       for (int l = 0; l < L; ++l) {
-        const int o = l * plane + s;
-        float uu = s_u[o];
+        const int o = l * PL;
+        const float own_r = pa[o], own_l = pb[o], own_d = pd[o], own_u = pt[o];
+        float uu = pu[o];
         float mr = 0.0f, ml = 0.0f, md = 0.0f, mu = 0.0f;
-        if (right) { mr = potts_marg(s_h1[o], s_h2[o], st_r, cr, L); uu += mr; }
-        if (left) { ml = potts_marg(s_h2[o - 1], s_h1[o - 1], st_l, cl, L); uu += ml; }
-        if (down) { md = potts_marg(s_v1[o], s_v2[o], st_d, cd, L); uu += md; }
-        if (up) { mu = potts_marg(s_v2[o - S], s_v1[o - S], st_u, cu, L); uu += mu; }
+        // same order of adds as the plain version
+        if (right) { mr = potts_marg(own_r, qr[o], st_r, cr, L); uu += mr; }
+        if (left) { ml = potts_marg(own_l, ql[o], st_l, cl, L); uu += ml; }
+        if (down) { md = potts_marg(own_d, qd[o], st_d, cd, L); uu += md; }
+        if (up) { mu = potts_marg(own_u, qu[o], st_u, cu, L); uu += mu; }
         const float d = __fmul_rn(uu, omega);
-        s_u[o] = uu * (1.0f - __fmul_rn(omega, deg));
-        if (right) s_h1[o] = (s_h1[o] - mr) + d;
-        if (left) s_h2[o - 1] = (s_h2[o - 1] - ml) + d;
-        if (down) s_v1[o] = (s_v1[o] - md) + d;
-        if (up) s_v2[o - S] = (s_v2[o - S] - mu) + d;
+        pu[o] = uu * keep;
+        if (right) pa[o] = (own_r - mr) + d;
+        if (left) pb[o] = (own_l - ml) + d;
+        if (down) pd[o] = (own_d - md) + d;
+        if (up) pt[o] = (own_u - mu) + d;
       }
     }
     __syncthreads();
   }
 
-  // write the centre: each cell's u and own slots (zeros for an inert row
-  // and for slots of absent edges in a shard)
-  const int tt = T * T;
-  for (int k = threadIdx.x; k < tt; k += blockDim.x) {
-    const int i = k / T + P, j = k % T + P;
-    const int r = R0 + i, c = C0 + j, gr = g.row0 + r;
-    if (r >= n || c >= W) continue;
+  // write the tile: each cell's u and own slots (zeros for an inert row and
+  // for slots of absent edges in a shard)
+  for (int i = P + ty; i < P + t.tr; i += RB) {
+    const int r = R0 + i, gr = g.row0 + r;
+    if (r >= n) break;
     const bool live = !kSharded || gr < H;
-    const bool right = c < W - 1, left = c > 0;
     const bool down = live && gr < H - 1, up = live && gr > 0;
-    float* ou = out_at(g.u_o, 0, r, c);
-    float* oh1 = right ? out_at(g.hm1_o, 0, r, c) : nullptr;
-    float* oh2 = left ? out_at(g.hm2_o, 0, r, c - 1) : nullptr;
-    float* ov1 = (down || kSharded) ? out_at(g.vm1_o, 0, r, c) : nullptr;
-    float* ov2 = (up || kSharded) ? out_at(g.vm2_o, 0, r, c) : nullptr;
-    const int s = i * S + j;
-    for (int l = 0; l < L; ++l) {
-      const int o = l * plane + s;
-      ou[l * g.u_o.ls] = live ? s_u[o] : 0.0f;
-      if (right) oh1[l * g.hm1_o.ls] = live ? s_h1[o] : 0.0f;
-      if (left) oh2[l * g.hm2_o.ls] = live ? s_h2[o - 1] : 0.0f;
-      if (down || kSharded) ov1[l * g.vm1_o.ls] = down ? s_v1[o] : 0.0f;
-      if (up || kSharded) ov2[l * g.vm2_o.ls] = up ? s_v2[o - S] : 0.0f;
+    for (int j = P + tx; j < P + t.tc; j += HW) {
+      const int c = C0 + j;
+      if (c >= W) break;
+      const bool right = c < W - 1, left = c > 0;
+      float* ou = out_at(g.u_o, 0, r, c);
+      float* oh1 = right ? out_at(g.hm1_o, 0, r, c) : nullptr;
+      float* oh2 = left ? out_at(g.hm2_o, 0, r, c - 1) : nullptr;
+      float* ov1 = (down || kSharded) ? out_at(g.vm1_o, 0, r, c) : nullptr;
+      float* ov2 = (up || kSharded) ? out_at(g.vm2_o, 0, r, c) : nullptr;
+      const int o0 = ((i + j) & 1) * t.hp + i * HW + (j >> 1);
+      for (int l = 0; l < L; ++l) {
+        const int o = l * PL + o0;
+        __stcs(ou + l * g.u_o.ls, live ? s_u[o] : 0.0f);  // streaming: not read again here
+        if (right) __stcs(oh1 + l * g.hm1_o.ls, live ? s_a[o] : 0.0f);
+        if (left) __stcs(oh2 + l * g.hm2_o.ls, live ? s_b[o] : 0.0f);
+        if (down || kSharded) __stcs(ov1 + l * g.vm1_o.ls, down ? s_d[o] : 0.0f);
+        if (up || kSharded) __stcs(ov2 + l * g.vm2_o.ls, up ? s_t[o] : 0.0f);
+      }
     }
   }
 }
@@ -384,24 +477,35 @@ cudaError_t launch_phase(const Grid& g, int recv_color, int send_color, float le
 }
 
 template <int NR, bool kSharded>
-cudaError_t launch_round(const Grid& g, cudaStream_t stream) {
-  const int T = round_tile(g.L, NR);
-  const int S = T + 2 * round_halo(NR);
-  const size_t smem = round_smem_bytes(g.L, NR, T);
+cudaError_t launch_round(const Grid& g, const RoundTile& t, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)t.smem);
   if (err != cudaSuccess) return err;
-  const int threads = ((S * S / 2 + 31) / 32) * 32;  // one thread per active cell
-  const dim3 grid((g.W + T - 1) / T, (g.n + T - 1) / T);
-  grid_round_kernel<NR, kSharded><<<grid, threads, smem, stream>>>(g, T);
+  err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.W + t.tc - 1) / t.tc, (g.n + t.tr - 1) / t.tr);
+  grid_round_kernel<NR, kSharded><<<grid, dim3(t.hw, t.rb), t.smem, stream>>>(g, t);
   return cudaGetLastError();
 }
 
+// The tile of a launch: tile_rows x tile_cols when both are positive (for a
+// tile sweep), else the default of round_tile.
+bool pick_round_tile(int L, int n_rounds, int tile_rows, int tile_cols, RoundTile* t) {
+  if (n_rounds != 1 && n_rounds != 2) return false;
+  *t = (tile_rows > 0 && tile_cols > 0) ? make_round_tile(L, n_rounds, tile_rows, tile_cols)
+                                         : round_tile(L, n_rounds);
+  return round_tile_ok(*t);
+}
+
 template <bool kSharded>
-cudaError_t launch_round_nr(const Grid& g, int n_rounds, cudaStream_t stream) {
-  if (n_rounds == 1) return launch_round<1, kSharded>(g, stream);
-  if (n_rounds == 2) return launch_round<2, kSharded>(g, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_round_nr(const Grid& g, int n_rounds, int tile_rows, int tile_cols,
+                            cudaStream_t stream) {
+  RoundTile t;
+  if (!pick_round_tile(g.L, n_rounds, tile_rows, tile_cols, &t)) return cudaErrorInvalidValue;
+  if (n_rounds == 1) return launch_round<1, kSharded>(g, t, stream);
+  return launch_round<2, kSharded>(g, t, stream);
 }
 
 Rows dense_rows(const float* p, long ls, int width, int shift) {
@@ -499,13 +603,27 @@ int lpmp_grid_phase_update(const float* u, const float* hm1, const float* hm2, c
 int lpmp_grid_round_update(const float* u, const float* hm1, const float* hm2, const float* vm1,
                            const float* vm2, const float* hc, const float* vc, float* u_o,
                            float* hm1_o, float* hm2_o, float* vm1_o, float* vm2_o, int L, int H,
-                           int W, int n_rounds, int device, void* stream) {
+                           int W, int n_rounds, int tile_rows, int tile_cols, int device,
+                           void* stream) {
   if (L < 1 || L > kMaxRoundLabels || H < 1 || W < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Grid g = dense_grid(u, hm1, hm2, vm1, vm2, hc, vc, u_o, hm1_o, hm2_o, vm1_o, vm2_o, L,
                             H, W);
-  return launch_round_nr<false>(g, n_rounds, static_cast<cudaStream_t>(stream));
+  return launch_round_nr<false>(g, n_rounds, tile_rows, tile_cols,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// The round kernel's tile for L labels and n_rounds (tile_rows, tile_cols as
+// for a launch): out = {T_r, T_c, S_r, S_c, threads, shared bytes}.
+int lpmp_grid_round_tile(int L, int n_rounds, int tile_rows, int tile_cols, long long* out) {
+  RoundTile t;
+  if (L < 1 || L > kMaxRoundLabels || !pick_round_tile(L, n_rounds, tile_rows, tile_cols, &t)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long v[6] = {t.tr, t.tc, t.sr, t.sc, (long long)t.hw * t.rb, (long long)t.smem};
+  for (int k = 0; k < 6; ++k) out[k] = v[k];
+  return cudaSuccess;
 }
 
 int lpmp_grid_phase_update_sharded(void* const* ptrs, const long long* slab_ls, int L, int n,
@@ -520,15 +638,15 @@ int lpmp_grid_phase_update_sharded(void* const* ptrs, const long long* slab_ls, 
 }
 
 int lpmp_grid_round_update_sharded(void* const* ptrs, const long long* slab_ls, int L, int n,
-                                   int W, int row0, int H, int n_rounds, int device,
-                                   void* stream) {
+                                   int W, int row0, int H, int n_rounds, int tile_rows,
+                                   int tile_cols, int device, void* stream) {
   if (L < 1 || L > kMaxRoundLabels || n < 1 || W < 1 || row0 < 0 || H < 1) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   return launch_round_nr<true>(shard_grid(ptrs, slab_ls, L, n, W, row0, H), n_rounds,
-                               static_cast<cudaStream_t>(stream));
+                               tile_rows, tile_cols, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

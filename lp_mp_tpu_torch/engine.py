@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from . import schedule as sched
-from .config import PAD_COST, Direction, ReparametrizationMode, eps_for, real_dtype
+from .config import (PAD_COST, Direction, ReparametrizationMode, entry_device, eps_for,
+                     real_dtype)
 from .convert import block_from_numpy
 from .graph import FactorGraph
 from .registry import FactorType, MessageType
@@ -204,8 +205,8 @@ class Engine:
 
     def __init__(self, graph: FactorGraph, schedule_mode: str = "wavefront",
                  update_mode: str = "shared", inner_iteration: int = 5,
-                 device="cpu", dtype: "torch.dtype | None" = None):
-        self.device = torch.device(device)
+                 device="cuda", dtype: "torch.dtype | None" = None):
+        self.device = entry_device(device)
         self.dtype = dtype or real_dtype(self.device)
         if schedule_mode == "auto":
             # coloring keeps the phase count graph-degree-bounded on big

@@ -18,10 +18,14 @@ from .ops.grid_kernels import (STATE_KEYS, phase_update, phase_update_ref,
                                round_update_sharded_ref)
 from .parallel.grid import RowShards
 
-# (H, W, L): ragged shapes around the round kernel's 16-cell tile, and the
-# main path's 1000 x 1000 grid with 4 labels
+# (H, W, L): ragged shapes around the round kernel's tiles (T_r x T_c cells
+# written per block: 12 x 56 at L=4 and n_rounds=2, 17 x 56 at n_rounds=1,
+# 56 x 56 at L=1, 13 x 24 at L=8, 14 x 8 at L=32), among them widths that are
+# no multiple of 4 floats, heights below a tile, W and H of 1 and 2, L = 1
+# and L = 32; last the main path's 1000 x 1000 grid with 4 labels
 CHECK_SHAPES = ((8, 8, 4), (33, 47, 3), (64, 40, 2), (9, 11, 1), (17, 130, 5),
-                (1000, 1000, 4))
+                (13, 57, 4), (5, 117, 4), (41, 113, 4), (9, 1, 3), (7, 2, 4), (1, 60, 4),
+                (2, 61, 2), (57, 59, 1), (23, 26, 8), (30, 21, 32), (1000, 1000, 4))
 # (recv_color, send_color, leave): the phase tuples of
 # tests/test_pallas_grid.py:91-92, whose leave values are x10 there
 PHASE_PARAMS = ((2, 2, 0.0), (1, 1, 0.0), (0, 1, 0.0), (2, 0, 0.0),

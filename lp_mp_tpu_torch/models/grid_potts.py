@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import ReparametrizationMode, real_dtype
+from ..config import ReparametrizationMode, entry_device, real_dtype
 from ..ops.grid_kernels import (STATE_KEYS, grid_masks, phase_update, receive,
                                 round_update, send)
 from ..ops.reductions import two_min
@@ -53,8 +53,8 @@ def _potts_min_pair(m1, m2, diff):
 class GridPottsModel:
     """Grid MRF with unary simplex factors and Potts pairwise factors."""
 
-    def __init__(self, unary, hcost, vcost, device="cpu", dtype=None):
-        self.device = torch.device(device)
+    def __init__(self, unary, hcost, vcost, device="cuda", dtype=None):
+        self.device = entry_device(device)
         self.dtype = dtype or real_dtype(self.device)
         if self.dtype not in _NUMPY_DTYPES:
             raise TypeError(f"GridPottsModel takes float32 or float64, not {self.dtype}")

@@ -28,11 +28,14 @@ _PP, _LLP = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # 7 input pointers, 5 output pointers, L, H, W, ..., device, stream
     "lpmp_grid_phase_update": [_P] * 12 + [_I, _I, _I, _I, _I, _F, _I, _P],
-    "lpmp_grid_round_update": [_P] * 12 + [_I, _I, _I, _I, _I, _P],
+    # ... n_rounds, tile_rows, tile_cols, device, stream
+    "lpmp_grid_round_update": [_P] * 12 + [_I, _I, _I, _I, _I, _I, _I, _P],
     # array of 26 pointers (21 inputs, 5 outputs), array of 14 slab label
     # strides, L, n, W, row0, H, ..., device, stream
     "lpmp_grid_phase_update_sharded": [_PP, _LLP, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "lpmp_grid_round_update_sharded": [_PP, _LLP, _I, _I, _I, _I, _I, _I, _I, _P],
+    "lpmp_grid_round_update_sharded": [_PP, _LLP] + [_I] * 9 + [_P],
+    # L, n_rounds, tile_rows, tile_cols, out[6]
+    "lpmp_grid_round_tile": [_I, _I, _I, _I, _LLP],
 }
 
 

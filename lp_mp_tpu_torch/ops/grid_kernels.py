@@ -387,13 +387,37 @@ def round_update(state, hc, vc, n_rounds: int = 1):
     dev = _device_of(state, hc, vc)
     if dev.type == "cpu":
         return round_update_ref(state, hc, vc, n_rounds)
-    if state["u"].shape[0] > ROUND_MAX_LABELS:
-        raise ValueError(
-            f"round_update's shared-memory tile takes at most {ROUND_MAX_LABELS} "
-            f"labels, got L={state['u'].shape[0]}; use phase_update phases instead")
-    out = _launch("lpmp_grid_round_update", state, hc, vc, int(n_rounds))
+    return launch_round_update(state, hc, vc, n_rounds)
+
+
+def launch_round_update(state, hc, vc, n_rounds: int, tile=(0, 0)):
+    """``round_update``'s kernel on CUDA tensors, with the tile ``(T_r,
+    T_c)`` of cells each block writes; ``(0, 0)`` takes the kernel's own
+    choice (``round_tile``).  Another tile is for a tile sweep."""
+    _check_round_labels(state["u"].shape[0], "round_update")
+    out = _launch("lpmp_grid_round_update", state, hc, vc, int(n_rounds), *map(int, tile))
     round_update.launches += 1
     return out
+
+
+def _check_round_labels(L, name):
+    if L > ROUND_MAX_LABELS:
+        raise ValueError(
+            f"{name}'s shared-memory tile takes at most {ROUND_MAX_LABELS} labels, got L={L}; "
+            f"use {name.replace('round', 'phase')} phases instead")
+
+
+def round_tile(L: int, n_rounds: int, tile=(0, 0)) -> dict:
+    """The round kernels' tile for ``L`` labels: cells written (``rows``,
+    ``cols``) and loaded (``rows_loaded``, ``cols_loaded``) per block,
+    ``threads`` per block and ``smem`` bytes of shared memory.  ``tile``
+    as for ``launch_round_update``.  Needs the built kernel library."""
+    out = (ctypes.c_longlong * 6)()
+    lib = _cuda_build.library()
+    rc = lib.lpmp_grid_round_tile(int(L), int(n_rounds), *map(int, tile), out)
+    if rc != 0:
+        raise ValueError(f"no round kernel tile for L={L}, n_rounds={n_rounds}, tile={tile}")
+    return dict(zip(("rows", "cols", "rows_loaded", "cols_loaded", "threads", "smem"), out))
 
 
 def phase_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int, W: int,
@@ -427,12 +451,9 @@ def round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H
     if dev.type == "cpu":
         return round_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0, H, W,
                                         n_rounds)
-    if L > ROUND_MAX_LABELS:
-        raise ValueError(
-            f"round_update_sharded's shared-memory tile takes at most {ROUND_MAX_LABELS} "
-            f"labels, got L={L}; use phase_update_sharded phases instead")
+    _check_round_labels(L, "round_update_sharded")
     out = _launch_sharded("lpmp_grid_round_update_sharded", named, L, n, row0, H, W,
-                          int(n_rounds))
+                          int(n_rounds), 0, 0)
     round_update_sharded.launches += 1
     return out
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import ReparametrizationMode, real_dtype
+from ..config import ReparametrizationMode, entry_device, real_dtype
 from ..models.grid_potts import _NUMPY_DTYPES, _potts_min_pair
 from ..ops.grid_kernels import (SLAB, STATE_KEYS, phase_update_sharded,
                                 phase_update_sharded_ref, round_update_sharded, sharded_phase)
@@ -147,9 +147,12 @@ class ShardedGridPotts:
     """
 
     def __init__(self, unary, hcost, vcost, devices=None, dtype=None):
+        """``devices``: one per shard; by default every CUDA device, one
+        shard each.  Pass ``devices=["cpu"] * n`` to run on the CPU."""
         if devices is None:
-            devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
-                       if torch.cuda.is_available() else ["cpu"])
+            entry_device("cuda")
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        devices = [entry_device(d) for d in devices]
         unary = np.asarray(unary)
         H, W, L = unary.shape
         self.H, self.W, self.L = H, W, L

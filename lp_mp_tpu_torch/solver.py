@@ -6,7 +6,8 @@ Replicates ``Solver`` / ``MpRoundingSolver`` (solver.hxx:29-400):
                PostIterate(LowerBound, Tighten) } while visitor continues
           -> End -> RegisterPrimal -> best primal available.
 
-The engine runs on the solver's ``device`` in its ``dtype``.  Tightening
+The engine runs on the solver's ``device`` (the card unless the caller
+passes ``device="cpu"``) in its ``dtype``.  Tightening
 grows the factor graph: additions that are triplets on existing pairwise
 or edge factors go into the bucketed side passes of ``aux_tighten``
 (``self.aux``, run after every engine pass); anything else rebuilds the
@@ -22,7 +23,7 @@ from typing import Any
 import torch
 
 from .aux_tighten import AuxPasses
-from .config import Direction
+from .config import Direction, entry_device
 from .engine import Engine
 from .graph import FactorGraph
 from .visitors import StandardVisitor
@@ -36,7 +37,7 @@ class Solver:
                  exact_rounding: "str | None" = None,
                  rounding: str = "mp",
                  tree_decomposition: "list | None" = None,
-                 device="cpu", dtype: "torch.dtype | None" = None):
+                 device="cuda", dtype: "torch.dtype | None" = None):
         if tree_decomposition is not None:
             raise NotImplementedError(
                 "tree decomposition is queue 1 item 8 of ROADMAP.md, not ported yet")
@@ -55,7 +56,7 @@ class Solver:
         # (factors_messages.hxx:513-566)
         assert rounding in ("mp", "restricted")
         self.rounding = rounding
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self.dtype = dtype
         self.constructors: list[Any] = []
         self.engine: "Engine | None" = None

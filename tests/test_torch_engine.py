@@ -120,7 +120,7 @@ def twin_graphs(recipe):
 def twin_engines(recipe, **kw):
     (gj, _), (gp, _) = twin_graphs(recipe)
     return (JEngine(gj, use_jit=False, pass_style="unrolled", **kw),
-            Engine(gp, **kw))
+            Engine(gp, device="cpu", **kw))
 
 
 def jax_numpy(tree):
@@ -178,7 +178,7 @@ def test_float32_engine_keeps_pad_lanes():
     """PAD_COST = 1e20 is finite in float32; mask_pad's PAD_COST/2 test keeps
     padded lanes out of every update."""
     (_, _), (gp, _) = twin_graphs(random_mrf(42))
-    e = Engine(gp, dtype=torch.float32)
+    e = Engine(gp, dtype=torch.float32, device="cpu")
     pad = e.state["unary_simplex"]["c"] >= 1e19
     assert pad.any()
     for _ in range(3):
@@ -219,7 +219,8 @@ def test_reparametrization_modes_match_jax(mode, rep):
 @pytest.mark.parametrize("rep", ["dense", "potts"])
 def test_wavefront_equals_sequential(rep):
     (_, _), (g, _) = twin_graphs(random_mrf(42, rep=rep))
-    seq, wav = Engine(g, schedule_mode="sequential"), Engine(g, schedule_mode="wavefront")
+    seq = Engine(g, schedule_mode="sequential", device="cpu")
+    wav = Engine(g, schedule_mode="wavefront", device="cpu")
     for _ in range(3):
         seq.compute_pass("anisotropic")
         wav.compute_pass("anisotropic")
@@ -228,10 +229,10 @@ def test_wavefront_equals_sequential(rep):
 
 def test_auto_schedule_mode_threshold():
     (_, _), (g, _) = twin_graphs(chain(n=6))
-    assert Engine(g, schedule_mode="auto").schedule_mode == "wavefront"
+    assert Engine(g, schedule_mode="auto", device="cpu").schedule_mode == "wavefront"
     h = FactorGraph()
     MrfConstructor(h).add_unary_factors(np.zeros((50_001, 2)))
-    assert Engine(h, schedule_mode="auto").schedule_mode == "coloring"
+    assert Engine(h, schedule_mode="auto", device="cpu").schedule_mode == "coloring"
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +288,7 @@ def test_compute_pass_and_primal_matches_jax(restricted, recipe):
 
 def test_restricted_pass_leaves_dual_trajectory_unchanged():
     (_, _), (g, _) = twin_graphs(frustrated_potts_grid(4, 4, 3, seed=3))
-    a, b = Engine(g), Engine(g)
+    a, b = Engine(g, device="cpu"), Engine(g, device="cpu")
     for _ in range(2):
         pa = a.compute_pass_and_primal("damped_uniform", Direction.forward)
         pb = b.compute_pass_and_primal("damped_uniform", Direction.forward, restricted=True)
@@ -398,14 +399,14 @@ def generic_grid_engine(u, hc, vc, batch):
                     mrf.add_pairwise_factor(r * W + c, r * W + c + 1, hc[r, c] * (1 - np.eye(L)))
                 if r + 1 < H:
                     mrf.add_pairwise_factor(r * W + c, (r + 1) * W + c, vc[r, c] * (1 - np.eye(L)))
-    return Engine(g, schedule_mode="coloring")
+    return Engine(g, schedule_mode="coloring", device="cpu")
 
 
 @pytest.mark.parametrize("H,W,batch", [(4, 4, False), (16, 16, True)], ids=["4x4_items", "16x16_batch"])
 @pytest.mark.parametrize("mode", ["anisotropic", "uniform", "damped_uniform"])
 def test_generic_engine_matches_grid_model(mode, H, W, batch):
     u, hc, vc = random_grid(H, W, 3, seed=5)
-    grid = GridPottsModel(u, hc, vc)
+    grid = GridPottsModel(u, hc, vc, device="cpu")
     eng = generic_grid_engine(u, hc, vc, batch)
     assert len(eng.phases[Direction.forward]) == 2         # red/black
     for _ in range(4):
@@ -463,9 +464,9 @@ def test_batch_construction_equals_item_construction(potts):
             c.add_pairwise_factors(pairs, dense)
         return c
 
-    s_b = Solver(visitor=StandardVisitor(max_iter=10))
+    s_b = Solver(visitor=StandardVisitor(max_iter=10), device="cpu")
     c_b = batch(s_b, MrfConstructor)
-    s_i = Solver(visitor=StandardVisitor(max_iter=10))
+    s_i = Solver(visitor=StandardVisitor(max_iter=10), device="cpu")
     c_i = s_i.add_constructor(MrfConstructor, pairwise_rep="potts" if potts else "dense")
     for u in un:
         c_i.add_unary_factor(u)

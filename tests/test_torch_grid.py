@@ -41,7 +41,7 @@ def assert_states_close(a, b, atol):
 def twins(H, W, L, seed, dtype=torch.float64):
     u, hc, vc = random_grid(H, W, L, seed=seed)
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    return JaxGrid(u, hc, vc, dtype=np_dtype), GridPottsModel(u, hc, vc, dtype=dtype)
+    return JaxGrid(u, hc, vc, dtype=np_dtype), GridPottsModel(u, hc, vc, dtype=dtype, device="cpu")
 
 
 def test_random_grid_is_the_jax_generator():
@@ -105,15 +105,15 @@ def test_kernel_path_matches_torch_path(mode):
     """Same fused schedule through the kernel wrappers and the plain path:
     the same ops in the same order, so equal in float64."""
     u, hc, vc = random_grid(8, 9, 4, seed=21)
-    a = GridPottsModel(u, hc, vc).run_fast(5, mode, kernel="cuda")
-    b = GridPottsModel(u, hc, vc).run_fast(5, mode, kernel="torch")
+    a = GridPottsModel(u, hc, vc, device="cpu").run_fast(5, mode, kernel="cuda")
+    b = GridPottsModel(u, hc, vc, device="cpu").run_fast(5, mode, kernel="torch")
     assert_states_close(port_state(a), port_state(b), atol=1e-12)
 
 
 def test_monotone_and_gap():
     # mirrors tests/test_grid.py::test_grid_monotone_and_gap
     u, hc, vc = random_grid(8, 8, 3, seed=6)
-    grid = GridPottsModel(u, hc, vc)
+    grid = GridPottsModel(u, hc, vc, device="cpu")
     lbs = [grid.lower_bound()]
     for _ in range(30):
         grid.iterate("anisotropic")
@@ -131,8 +131,8 @@ def test_monotone_and_gap():
 def test_run_fast_matches_iterate_anisotropic(kernel):
     # mirrors tests/test_grid.py::test_run_fast_matches_iterate_anisotropic
     u, hc, vc = random_grid(6, 6, 3, seed=7)
-    a = GridPottsModel(u, hc, vc).iterate("anisotropic", n=20)
-    b = GridPottsModel(u, hc, vc).run_fast(20, "anisotropic", kernel=kernel)
+    a = GridPottsModel(u, hc, vc, device="cpu").iterate("anisotropic", n=20)
+    b = GridPottsModel(u, hc, vc, device="cpu").run_fast(20, "anisotropic", kernel=kernel)
     assert abs(a.lower_bound() - b.lower_bound()) < 1e-5
 
 
@@ -140,8 +140,8 @@ def test_run_fast_matches_iterate_anisotropic(kernel):
 def test_run_fast_uniform_exact_two_labels(kernel):
     # mirrors tests/test_grid.py::test_run_fast_uniform_exact (L=2)
     u, hc, vc = random_grid(5, 5, 2, seed=8)
-    a = GridPottsModel(u, hc, vc).iterate("damped_uniform", n=7)
-    b = GridPottsModel(u, hc, vc).run_fast(7, "damped_uniform", kernel=kernel)
+    a = GridPottsModel(u, hc, vc, device="cpu").iterate("damped_uniform", n=7)
+    b = GridPottsModel(u, hc, vc, device="cpu").run_fast(7, "damped_uniform", kernel=kernel)
     assert abs(a.lower_bound() - b.lower_bound()) < 1e-9
     jm = JaxGrid(u, hc, vc)
     jm.run_fast(7, "damped_uniform")
@@ -152,9 +152,9 @@ def test_run_fast_uniform_exact_two_labels(kernel):
 def test_single_label_edge_case(kernel):
     # mirrors tests/test_grid.py::test_single_label_edge_cases (L=1)
     u, hc, vc = random_grid(3, 3, 1, seed=9)
-    grid = GridPottsModel(u, hc, vc).iterate("anisotropic", n=2)
+    grid = GridPottsModel(u, hc, vc, device="cpu").iterate("anisotropic", n=2)
     assert abs(grid.lower_bound() - u.sum()) < 1e-4   # diff never paid
-    fast = GridPottsModel(u, hc, vc).run_fast(2, kernel=kernel)
+    fast = GridPottsModel(u, hc, vc, device="cpu").run_fast(2, kernel=kernel)
     assert abs(fast.lower_bound() - u.sum()) < 1e-4
     jm = JaxGrid(u, hc, vc)
     jm.iterate("anisotropic", n=2)
@@ -166,7 +166,7 @@ def test_state_carried_across_from_jax(kernel):
     u, hc, vc = random_grid(7, 8, 3, seed=3)
     jm = JaxGrid(u, hc, vc)
     jm.iterate("anisotropic", n=5)
-    pm = GridPottsModel(u, hc, vc).load_state(
+    pm = GridPottsModel(u, hc, vc, device="cpu").load_state(
         grid_state_from_numpy(jax_state(jm), device="cpu", dtype=torch.float64))
     assert_states_close(jax_state(jm), port_state(pm), atol=0.0)
     jm.run_fast(5, kernel="xla")
@@ -176,7 +176,7 @@ def test_state_carried_across_from_jax(kernel):
 
 
 def test_load_state_checks_shapes():
-    pm = GridPottsModel(*random_grid(4, 5, 2, seed=0))
+    pm = GridPottsModel(*random_grid(4, 5, 2, seed=0), device="cpu")
     bad = {k: v.clone() for k, v in pm.state.items()}
     bad["vm1"] = bad["hm1"]
     with pytest.raises(ValueError, match="vm1"):
@@ -188,17 +188,17 @@ def test_load_state_checks_shapes():
 def test_model_rejects_bad_input():
     u, hc, vc = random_grid(4, 5, 2, seed=0)
     with pytest.raises(ValueError, match="cost shapes"):
-        GridPottsModel(u, vc, hc)
+        GridPottsModel(u, vc, hc, device="cpu")
     with pytest.raises(ValueError, match="kernel"):
-        GridPottsModel(u, hc, vc).run_fast(1, kernel="pallas")
+        GridPottsModel(u, hc, vc, device="cpu").run_fast(1, kernel="pallas")
     with pytest.raises(NotImplementedError):
-        GridPottsModel(u, hc, vc).run_fast(1, mode="mixed")
+        GridPottsModel(u, hc, vc, device="cpu").run_fast(1, mode="mixed")
 
 
 def test_dtype_policy():
     assert real_dtype("cpu") == torch.float64
     assert real_dtype("cuda") == torch.float32
-    assert GridPottsModel(*random_grid(3, 4, 2)).state["u"].dtype == torch.float64
+    assert GridPottsModel(*random_grid(3, 4, 2), device="cpu").state["u"].dtype == torch.float64
     set_dtype(torch.float32)
     try:
         assert real_dtype("cpu") == torch.float32

@@ -18,7 +18,7 @@ import torch
 from lp_mp_tpu.models.grid_potts import GridPottsModel as JaxGrid
 from lp_mp_tpu.ops.pallas_grid import phase_update as jax_phase_update_v1
 from lp_mp_tpu.ops.pallas_grid import phase_update_v2, round_update_v2
-from lp_mp_tpu_torch.kernel_check import PHASE_PARAMS, random_dense_state
+from lp_mp_tpu_torch.kernel_check import CHECK_SHAPES, PHASE_PARAMS, random_dense_state
 from lp_mp_tpu_torch.ops import _cuda_build
 from lp_mp_tpu_torch.ops import grid_kernels as gk
 
@@ -119,6 +119,20 @@ def test_wrappers_refuse_what_no_route_takes():
         gk.phase_update(meta, hc.to("meta"), vc.to("meta"), 1, 1, 0.0)
     with pytest.raises(ValueError, match="several devices"):
         gk.round_update(meta, hc, vc, 1)
+
+
+def test_check_shapes_cover_the_round_tiles():
+    """kernel_check.CHECK_SHAPES, which chip_smoke.py and the gpu tests run on
+    the card, keeps ragged shapes around the round kernel's tiles (12 x 56
+    cells at L=4, n_rounds=2) and the main path's grid last."""
+    assert CHECK_SHAPES[-1] == (1000, 1000, 4)
+    small = CHECK_SHAPES[:-1]
+    assert any(W % 4 and W % 56 and W > 56 for _, W, _ in small)   # ragged, not 16-byte rows
+    assert any(H < 12 and W > 56 and L == 4 for H, W, L in small)   # below one tile's rows
+    assert {1, 2} <= {W for _, W, _ in small}
+    assert {1, 2} <= {H for H, _, _ in small}
+    assert {1, gk.ROUND_MAX_LABELS} <= {L for _, _, L in small}
+    assert all(L <= gk.ROUND_MAX_LABELS for _, _, L in CHECK_SHAPES)
 
 
 def test_cuda_argument_checks():

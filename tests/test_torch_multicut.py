@@ -294,7 +294,7 @@ def solve_multicut(edges, tighten=True, max_iter=60):
         max_iter=max_iter, tighten=tighten, tighten_iteration=3, tighten_interval=5,
         tighten_constraints_max=10, standard_reparametrization="anisotropic",
         rounding_reparametrization="damped_uniform", primal_computation_interval=10 ** 9)
-    s = Solver(visitor=vis)
+    s = Solver(visitor=vis, device="cpu")
     mc = s.add_constructor(MulticutConstructor)
     for i, j, w in edges:
         mc.add_edge(i, j, w)
@@ -321,7 +321,7 @@ def test_frustrated_four_cycle():
 
 
 def test_gaec_merges_attractive():
-    mc = Solver().add_constructor(MulticutConstructor)
+    mc = Solver(device="cpu").add_constructor(MulticutConstructor)
     mc.add_edge(0, 1, 5.0)
     mc.add_edge(1, 2, 5.0)
     mc.add_edge(0, 2, -1.0)
@@ -332,7 +332,7 @@ def test_gaec_merges_attractive():
 
 def test_multicut_random_monotone():
     rng = np.random.default_rng(0)
-    s = Solver()
+    s = Solver(device="cpu")
     mc = s.add_constructor(MulticutConstructor)
     n = 8
     for i in range(n):
@@ -385,7 +385,7 @@ def test_gaec_incremental_matches_bruteforce_small(with_native, monkeypatch):
     rng = np.random.default_rng(2)
     for trial in range(10):
         n = 7
-        mc = Solver().add_constructor(MulticutConstructor)
+        mc = Solver(device="cpu").add_constructor(MulticutConstructor)
         for i in range(n):
             for j in range(i + 1, n):
                 if rng.random() < 0.7:
@@ -479,7 +479,7 @@ def test_wheel_bound_and_marginals_match_bruteforce():
 def w5_solver():
     """W5: hub 0, rim 1..5; attractive spokes (+1), repulsive rim (-1):
     integral optimum -2, cycle relaxation -2.5."""
-    s = Solver()
+    s = Solver(device="cpu")
     mc = s.add_constructor(MulticutConstructor)
     rim = [1, 2, 3, 4, 5]
     for v in rim:
@@ -490,7 +490,7 @@ def w5_solver():
 
 
 def converge(s, iters):
-    eng = Engine(s.graph)
+    eng = Engine(s.graph, device="cpu")
     for _ in range(iters):
         eng.compute_pass("anisotropic")
     return eng
@@ -508,7 +508,7 @@ def test_w5_cycle_and_k4_stall_wheel5_improves():
     assert lb_stalled == pytest.approx(-2.5, abs=0.05)
     assert mc.tighten_wheels_general(eng, max_constraints=4) >= 1
     assert any(len(rim) == 5 and center == 0 for (center, *_), (_, rim) in mc.wheels_k.items())
-    eng3 = Engine(s.graph)
+    eng3 = Engine(s.graph, device="cpu")
     for name, block in eng.state.items():
         for key, v in block.items():
             eng3.state[name][key][tuple(slice(0, d) for d in v.shape)] = v
@@ -561,7 +561,7 @@ def test_multicut_triplet_absorb_no_rebuild():
         return sum(c for (i, j), c in zip(pairs, costs) if lab[i] != lab[j])
     opt = min(mc_cost(lab) for lab in itertools.product(range(5), repeat=5))
 
-    s = Solver()
+    s = Solver(device="cpu")
     mc = s.add_constructor(MulticutConstructor)
     mc.add_edges(pairs, costs)
     s.build_engine()
@@ -584,7 +584,7 @@ def test_multicut_triplet_absorb_no_rebuild():
 
     s2 = Solver(visitor=StandardTighteningVisitor(
         max_iter=80, tighten=True, tighten_iteration=5, tighten_interval=10,
-        tighten_constraints_max=40))
+        tighten_constraints_max=40), device="cpu")
     mc2 = s2.add_constructor(MulticutConstructor)
     mc2.add_edges(pairs, costs)
     lb = s2.solve()
@@ -599,7 +599,7 @@ def absorbed_pair(n=6, seed=22, triplets=((0, 1, 2), (2, 3, 4))):
     pairs, costs = complete_graph(n, seed)
     out = []
     for S, M, kw in ((JSolver, JMulticut, dict(use_jit=False, pass_style="unrolled")),
-                     (Solver, MulticutConstructor, {})):
+                     (Solver, MulticutConstructor, dict(device="cpu"))):
         s = S(**kw)
         mc = s.add_constructor(M)
         mc.add_edges(pairs, costs)
@@ -661,7 +661,7 @@ def test_solver_multicut_tightening_matches_jax():
     logs = ([], [])
     sj = JSolver(visitor=JTVisitor(log_fn=logs[0].append, **kw), use_jit=False,
                  pass_style="unrolled")
-    sp = Solver(visitor=StandardTighteningVisitor(log_fn=logs[1].append, **kw))
+    sp = Solver(visitor=StandardTighteningVisitor(log_fn=logs[1].append, **kw), device="cpu")
     cj, cp = sj.add_constructor(JMulticut), sp.add_constructor(MulticutConstructor)
     for c in (cj, cp):
         c.add_edges(pairs, costs)

@@ -141,7 +141,7 @@ SHAPE_IDS = [f"{h}x{w}x{l}-n{n}" for h, w, l, n in SHAPES]
 def dense_and_sharded(shape, dtype, seed=21):
     h, w, l, n = shape
     u, hc, vc = random_grid(h, w, l, seed=seed)
-    return (GridPottsModel(u, hc, vc, dtype=dtype),
+    return (GridPottsModel(u, hc, vc, dtype=dtype, device="cpu"),
             ShardedGridPotts(u, hc, vc, devices=["cpu"] * n, dtype=dtype))
 
 

@@ -38,7 +38,8 @@ def twin_solvers(recipe, visitor_kw, **kw):
     logs = ([], [])
     sj = JSolver(visitor=JVisitor(log_fn=logs[0].append, **visitor_kw), use_jit=False,
                  pass_style="unrolled", **kw)
-    sp = Solver(visitor=StandardVisitor(log_fn=logs[1].append, **visitor_kw), **kw)
+    sp = Solver(visitor=StandardVisitor(log_fn=logs[1].append, **visitor_kw), device="cpu",
+                **kw)
     ctors = [s.add_constructor(M, **ctor_kw) for s, M in ((sj, JMrf), (sp, MrfConstructor))]
     for s, c in zip((sj, sp), ctors):
         build(s.graph, c)
@@ -117,13 +118,13 @@ def test_solver_rebuild_leaves_graph_costs_intact():
     sj.build_engine()
     sp.build_engine()
     fresh_j = JEngine(sj.graph, use_jit=False, pass_style="unrolled")
-    fresh_p = Engine(sp.graph)
+    fresh_p = Engine(sp.graph, device="cpu")
     assert_trees_close(jax_numpy(fresh_j.state), engine_state_to_numpy(fresh_p.state), atol=0.0)
     assert abs(fresh_j.lower_bound() - fresh_p.lower_bound()) < 1e-10
 
 
 def test_solver_device_and_dtype():
-    s = Solver(visitor=StandardVisitor(max_iter=3), dtype=torch.float32)
+    s = Solver(visitor=StandardVisitor(max_iter=3), dtype=torch.float32, device="cpu")
     mrf = s.add_constructor(MrfConstructor)
     mrf.add_unary_factors(np.random.default_rng(0).normal(size=(5, 3)))
     mrf.add_pairwise_factors(np.array([[0, 1], [1, 2], [3, 4]]),
@@ -135,7 +136,7 @@ def test_solver_device_and_dtype():
 
 
 def test_visitor_prints_iterations_at_diagnostics_verbosity(capsys):
-    s = Solver(visitor=StandardVisitor(max_iter=3))
+    s = Solver(visitor=StandardVisitor(max_iter=3), device="cpu")
     parse_and_build(UAI_TEST_INPUT, s.add_constructor(MrfConstructor))
     old = config.verbosity
     config.verbosity = 1
@@ -164,7 +165,7 @@ def _solve_uai(schedule_mode):
     s = Solver(visitor=StandardVisitor(
         max_iter=100, standard_reparametrization="anisotropic",
         rounding_reparametrization="anisotropic", lower_bound_computation_interval=1,
-        primal_computation_interval=5), schedule_mode=schedule_mode)
+        primal_computation_interval=5), schedule_mode=schedule_mode, device="cpu")
     mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
     parse_and_build(UAI_TEST_INPUT, mrf)
     return s, mrf, s.solve()
@@ -239,11 +240,11 @@ def test_native_library_has_its_own_cache(monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
-        Solver(tree_decomposition=[[0]])
+        Solver(tree_decomposition=[[0]], device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
-        Solver(exact_rounding="ilp")
+        Solver(exact_rounding="ilp", device="cpu")
     # tightening is ported: on the UAI chain (no triangle, no cycle) it adds nothing
-    s = Solver()
+    s = Solver(device="cpu")
     mrf = s.add_constructor(MrfConstructor)
     parse_and_build(UAI_TEST_INPUT, mrf)
     assert mrf.tighten(s.build_engine(), 5) == 0
@@ -255,7 +256,7 @@ def test_tightening_visitor_control_raises():
     ``Solver.tighten`` every iteration, which on the chain adds nothing, so
     the solve ends as the untightened one does (lb 0.564)."""
     s = Solver(visitor=StandardTighteningVisitor(max_iter=10, tighten=True, tighten_iteration=1,
-                                                 tighten_interval=1))
+                                                 tighten_interval=1), device="cpu")
     mrf = s.add_constructor(MrfConstructor)
     parse_and_build(UAI_TEST_INPUT, mrf)
     assert abs(s.solve() - 0.564) < 1e-8

@@ -127,7 +127,7 @@ def tightening_visitor(cls, **kw):
 # tests/test_tightening.py
 # ---------------------------------------------------------------------------
 def test_frustrated_triangle_without_tightening():
-    s = Solver(visitor=StandardVisitor(max_iter=30))
+    s = Solver(visitor=StandardVisitor(max_iter=30), device="cpu")
     binary_triangle(s.add_constructor(MrfConstructor, pairwise_rep="dense"))
     assert abs(s.solve()) <= 1e-8
 
@@ -136,8 +136,8 @@ def test_frustrated_triangle_without_tightening():
                          ids=["binary", "multilabel"])
 def test_explicit_triplet_closes_triangle(build):
     lbs = []
-    for S, M, kw in ((Solver, MrfConstructor, {}), (JSolver, JMrf, dict(use_jit=False,
-                                                                        pass_style="unrolled"))):
+    for S, M, kw in ((Solver, MrfConstructor, dict(device="cpu")),
+                     (JSolver, JMrf, dict(use_jit=False, pass_style="unrolled"))):
         V = StandardVisitor if S is Solver else JVisitor
         s = S(visitor=V(max_iter=100), **kw)
         mrf = s.add_constructor(M, pairwise_rep="dense")
@@ -150,7 +150,7 @@ def test_explicit_triplet_closes_triangle(build):
 
 def test_triplet_search():
     s = Solver(visitor=tightening_visitor(StandardTighteningVisitor, max_iter=100,
-                                          tighten_constraints_max=1))
+                                          tighten_constraints_max=1), device="cpu")
     mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
     multilabel_triangle(mrf)
     lb = s.solve()
@@ -162,7 +162,7 @@ def twin_grid8_engines(passes=3):
     """The real-valued 8x8 grid in both packages after ``passes`` passes."""
     out = []
     for S, M, kw in ((JSolver, JMrf, dict(use_jit=False, pass_style="unrolled")),
-                     (Solver, MrfConstructor, {})):
+                     (Solver, MrfConstructor, dict(device="cpu"))):
         s = S(**kw)
         mrf = s.add_constructor(M, pairwise_rep="dense")
         real_grid8(mrf, L=3)
@@ -192,7 +192,7 @@ def test_triplet_scores_and_search_match_jax():
 # tests/test_cycle_separation.py
 # ---------------------------------------------------------------------------
 def test_projection_graph_signs():
-    s = Solver(visitor=tightening_visitor(StandardTighteningVisitor))
+    s = Solver(visitor=tightening_visitor(StandardTighteningVisitor), device="cpu")
     mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
     frustrated_cycle(mrf, 4)
     s.build_engine()
@@ -207,7 +207,7 @@ def test_projection_graph_signs():
 
 
 def test_search_finds_odd_cycle():
-    s = Solver(visitor=tightening_visitor(StandardTighteningVisitor))
+    s = Solver(visitor=tightening_visitor(StandardTighteningVisitor), device="cpu")
     mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
     frustrated_cycle(mrf, 4)
     s.build_engine()
@@ -222,7 +222,7 @@ def test_search_finds_odd_cycle():
 @pytest.mark.parametrize("n", [4, 5])
 def test_frustrated_cycle_closed_by_solve(n):
     """graphical_model.cpp:232-246: lb 0 -> 1.0 through Solve() alone."""
-    s = Solver(visitor=tightening_visitor(StandardTighteningVisitor))
+    s = Solver(visitor=tightening_visitor(StandardTighteningVisitor), device="cpu")
     mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
     frustrated_cycle(mrf, n)
     lb = s.solve()
@@ -231,7 +231,7 @@ def test_frustrated_cycle_closed_by_solve(n):
 
 
 def test_no_false_positives_on_consistent_cycle():
-    s = Solver(visitor=tightening_visitor(StandardTighteningVisitor))
+    s = Solver(visitor=tightening_visitor(StandardTighteningVisitor), device="cpu")
     mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
     for _ in range(4):
         mrf.add_unary_factor(np.zeros(2))
@@ -282,7 +282,7 @@ def absorb_rounds(s, mrf, rounds, per_round, passes, search=ptight.triplet_searc
 
 def test_tighten_rounds_do_not_rebuild_engine():
     rng = np.random.RandomState(0)
-    s = Solver(visitor=StandardVisitor(max_iter=5))
+    s = Solver(visitor=StandardVisitor(max_iter=5), device="cpu")
     mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
     frustrated_grid(mrf, 6, 6, rng)
     s.solve()
@@ -297,7 +297,7 @@ def test_tighten_rounds_do_not_rebuild_engine():
 def test_aux_path_matches_rebuild_fixed_point():
     vis = StandardTighteningVisitor(max_iter=60, tighten=True, tighten_iteration=3,
                                     tighten_interval=5, tighten_constraints_max=5)
-    s = Solver(visitor=vis)
+    s = Solver(visitor=vis, device="cpu")
     disagree_3cycle(s.add_constructor(MrfConstructor, pairwise_rep="dense"))
     lb = s.solve()
     assert abs(lb - 1.0) < 1e-5, lb
@@ -309,7 +309,7 @@ def test_aux_path_matches_rebuild_fixed_point():
 def test_aux_fold_into_rebuild_keeps_bound():
     vis = StandardTighteningVisitor(max_iter=40, tighten=True, tighten_iteration=3,
                                     tighten_interval=5, tighten_constraints_max=5)
-    s = Solver(visitor=vis)
+    s = Solver(visitor=vis, device="cpu")
     disagree_3cycle(s.add_constructor(MrfConstructor, pairwise_rep="dense"))
     lb = s.solve()
     assert s.aux.n == 1
@@ -325,7 +325,7 @@ def test_aux_tighten_100x100_no_rebuilds():
     engine builds, monotone bound, batched triplet separation."""
     rng = np.random.default_rng(0)
     H = W = 100
-    s = Solver(visitor=StandardVisitor(max_iter=5), schedule_mode="coloring")
+    s = Solver(visitor=StandardVisitor(max_iter=5), schedule_mode="coloring", device="cpu")
     mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
     mrf.add_unary_factors(rng.uniform(-0.2, 0.2, size=(H * W, 2)))
     idx = np.arange(H * W).reshape(H, W)
@@ -409,7 +409,7 @@ def grid8_solvers(max_iter=24):
               tighten_constraints_max=6, primal_computation_interval=4)
     logs = ([], [])
     sj = j_solver(JTVisitor(log_fn=logs[0].append, **kw))
-    sp = Solver(visitor=StandardTighteningVisitor(log_fn=logs[1].append, **kw))
+    sp = Solver(visitor=StandardTighteningVisitor(log_fn=logs[1].append, **kw), device="cpu")
     ctors = [s.add_constructor(M, pairwise_rep="dense") for s, M in ((sj, JMrf), (sp, MrfConstructor))]
     for c in ctors:
         real_grid8(c)
