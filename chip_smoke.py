@@ -41,8 +41,17 @@ rebuilt into the engine) to gap 1e-4 at the JAX package's bound, the 40x40
 multicut grid to gap 1e-2, and the frustrated 4-cycle to lb 1.0.  The
 JAX package's values are constants below, taken on the CPU in float32.
 
-The last lines are JSON records of the engine path and of tightening, a
-JSON record of the kernels, and {"ok": true, "device": {...}}.  Any
+Then graph matching and tomography, plain PyTorch on the card in float32:
+tomography_10x32 and qap_16x16 of bench.py's solver_e2e through Solver,
+against the JAX package's float32 CPU bounds and gaps (constants below,
+recomputed by tests/test_torch_model_constants.py); then the timed bench.py
+sizes, qap_32x32_3000quadratic (engine it/s, host enqueue, idle share, and
+the rounding split into min-cost flow, 2-opt polish and greedy start) and
+tomography_100chains_64vars_counting (it/s, host enqueue, idle share).
+
+The last lines are JSON records of the engine path, of tightening and of
+the two models, a JSON record of the kernels, and {"ok": true, "device":
+{...}}.  Any
 failure raises and exits non-zero; without a CUDA device it exits non-zero
 at once.
 """
@@ -60,8 +69,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from lp_mp_tpu_torch import (Direction, Engine, FactorGraph, GridPottsModel, MrfConstructor,
-                             MulticutConstructor, ShardedGridPotts, Solver,
+from lp_mp_tpu_torch import (Direction, DiscreteTomographyConstructor, Engine, FactorGraph,
+                             GraphMatchingConstructor, GraphMatchingInput, GridPottsModel,
+                             MrfConstructor, MulticutConstructor, ShardedGridPotts, Solver,
                              StandardTighteningVisitor, StandardVisitor, native, random_grid)
 from lp_mp_tpu_torch.convert import host_array
 from lp_mp_tpu_torch.kernel_check import (RTOL, check_grid_kernels, check_phase_v1,
@@ -73,6 +83,7 @@ from lp_mp_tpu_torch.ops.grid_kernels import (launch_counts, phase_update, phase
                                               phase_update_v1, reset_launch_counts,
                                               round_tile, round_update, round_update_ref,
                                               round_update_sharded, round_update_sharded_ref)
+from lp_mp_tpu_torch.utils.mincostflow import solve_assignment
 
 H, W, L, SEED = 1000, 1000, 4, 1
 CHUNKS, CHUNK_ITERS = 15, 100
@@ -104,6 +115,16 @@ JAX_GRID24 = {"lb": -133.89813232421875, "ub": -133.89813232421875, "builds": 4,
               "n_triplets": 328}
 JAX_GRID40 = {"lb": -577.2794189453125, "ub": -571.923828125, "builds": 18,
               "n_triplets": 21077}
+# graph matching and tomography: Solver(StandardVisitor(max_iter=60),
+# schedule_mode="auto") on bench.py's solver_e2e instances, and the timed
+# bench.py sizes; the JAX package's values on the CPU in float32 as above
+# (tests/test_torch_model_constants.py recomputes them)
+MODEL_ITERS = 60
+JAX_TOMO10X32 = {"lb": -306.734375, "ub": -306.73443603515625, "schedule_mode": "coloring"}
+JAX_QAP16 = {"lb": -26.722871780395508, "ub": -25.933637619018555,
+             "rel_gap": 0.030432836803355522, "schedule_mode": "wavefront",
+             "matching": [10, 11, 0, 14, 9, 1, 2, 3, 15, 6, 8, 5, 12, 4, 7, 13]}
+MODEL_TIME_REPS = 3
 
 
 def fail(msg: str) -> None:
@@ -803,10 +824,11 @@ def solver_run(tag: str, s: Solver, ctor) -> dict:
         fail(f"{tag}: the Solver run launched grid kernels: {launch_counts()}")
     ub = s.primal_cost()
     gap = (ub - lb) / max(1.0, abs(ub))
+    n_trip = len(getattr(ctor, "triplets", ()))
     out = {"lb": lb, "ub": ub, "rel_gap": gap, "s": sec, "n_engine_builds": s.n_engine_builds,
-           "aux_n": s.aux.n, "n_triplets": len(ctor.triplets)}
+           "aux_n": s.aux.n, "n_triplets": n_trip}
     print(f"{tag}: Solver.solve() in {sec:.2f} s: lb {lb:.6f}, ub {ub:.6f}, rel gap {gap:.3e}, "
-          f"{s.n_engine_builds} engine builds, aux.n {s.aux.n}, {len(ctor.triplets)} triplets")
+          f"{s.n_engine_builds} engine builds, aux.n {s.aux.n}, {n_trip} triplets")
     return out
 
 
@@ -853,6 +875,153 @@ def phase_tightening_solvers() -> dict:
     return out
 
 
+def qap_input(n: int, n_edges: int, seed: int) -> GraphMatchingInput:
+    """bench.py:436-471 and :588-607: every left node a candidate of every
+    right node at N(0, 1) cost, and ``n_edges`` draws of a quadratic term
+    N(0, 0.3^2) between assignments of distinct left and right nodes."""
+    rng = np.random.default_rng(seed)
+    assignments = [(i, j, float(rng.normal())) for i in range(n) for j in range(n)]
+    aid = {(i, j): k for k, (i, j, _) in enumerate(assignments)}
+    edges = []
+    for _ in range(n_edges):
+        i1, i2 = rng.choice(n, 2, replace=False)
+        j1, j2 = rng.choice(n, 2, replace=False)
+        if j1 != j2:
+            edges.append((aid[(i1, j1)], aid[(i2, j2)], float(rng.normal() * 0.3)))
+    return GraphMatchingInput(n, n, assignments, edges)
+
+
+def tomography_chains(dt: DiscreteTomographyConstructor, n_chains: int, nv: int, labels: int,
+                      seed: int) -> None:
+    """bench.py:474-505 and :566-585: chains of ``nv`` pixels with normal
+    unaries and N(0, 0.3^2) pairwise, one projection per chain whose cost
+    rises by 0.05 per unit from a random target sum."""
+    rng = np.random.default_rng(seed)
+    v = 0
+    for _ in range(n_chains):
+        first = v
+        for q in range(nv):
+            dt.add_unary_factor(rng.normal(size=labels))
+            if q:
+                dt.add_pairwise_factor(v - 1, v, rng.normal(size=(labels, labels)) * 0.3)
+            v += 1
+        smax = (labels - 1) * nv
+        dt.add_projection(range(first, v), 0.05 * np.abs(np.arange(smax + 1)
+                                                         - int(rng.integers(0, smax))))
+
+
+def model_solver(ctor_cls, **kw):
+    s = Solver(visitor=StandardVisitor(max_iter=MODEL_ITERS), schedule_mode="auto",
+               device="cuda", dtype=torch.float32)
+    return s, s.add_constructor(ctor_cls, **kw)
+
+
+def phase_model_solvers() -> dict:
+    """tomography_10x32 and qap_16x16 of bench.py's solver_e2e through
+    Solver on the card, against the JAX package's float32 CPU values."""
+    out = {}
+    s, dt = model_solver(DiscreteTomographyConstructor)
+    tomography_chains(dt, 10, 32, 3, seed=10)
+    r = out["tomography_10x32"] = solver_run("tomography_10x32", s, dt)
+    r["schedule_mode"] = s.engine.schedule_mode
+    print(f"tomography_10x32: JAX package {JAX_TOMO10X32}; {s.engine.schedule_mode} schedule; "
+          f"lb rel diff {rel(r['lb'], JAX_TOMO10X32['lb']):.3e} (limit 1e-4), ub - lb "
+          f"{r['ub'] - r['lb']:.3e} (limit 1e-4 |lb|)")
+    if not (rel(r["lb"], JAX_TOMO10X32["lb"]) <= 1e-4 and r["ub"] - r["lb"] <= 1e-4 * abs(r["lb"])):
+        fail(f"tomography_10x32: lb {r['lb']}, ub {r['ub']}")
+
+    s, gm = model_solver(GraphMatchingConstructor, construction="left")
+    gm.construct(qap_input(16, 600, seed=9))
+    r = out["qap_16x16"] = solver_run("qap_16x16", s, gm)
+    r["schedule_mode"] = s.engine.schedule_mode
+    same = bool((gm.matching(s.engine, s.best_primal) == np.asarray(JAX_QAP16["matching"])).all())
+    print(f"qap_16x16: JAX package lb {JAX_QAP16['lb']}, ub {JAX_QAP16['ub']}, rel gap "
+          f"{JAX_QAP16['rel_gap']:.3e}; lb rel diff {rel(r['lb'], JAX_QAP16['lb']):.3e} "
+          f"(limit 1e-4), rel gap limit {JAX_QAP16['rel_gap'] + 1e-3:.3e}; matching equal to "
+          f"the JAX package's: {same}")
+    r["matching_equal"] = same
+    if not (rel(r["lb"], JAX_QAP16["lb"]) <= 1e-4 and r["ub"] >= r["lb"]
+            and r["rel_gap"] <= JAX_QAP16["rel_gap"] + 1e-3):
+        fail(f"qap_16x16: lb {r['lb']}, ub {r['ub']}, rel gap {r['rel_gap']}")
+    return out
+
+
+def engine_time(tag: str, e: Engine, card: str) -> dict:
+    """Passes per second by CUDA events (median of 3), host enqueue of one
+    pass and its device idle share under torch.profiler; the engine
+    launches no hand-written kernel."""
+    step = lambda: e.compute_pass("anisotropic")          # noqa: E731
+    reset_launch_counts()
+    pass_ms = in_turns({"pass": step}, reps=MODEL_TIME_REPS)["pass"]
+    host = host_ms(step, reps=MODEL_TIME_REPS)
+    prof = profile_pass(step)
+    if any(launch_counts().values()):
+        fail(f"{tag}: the engine launched grid kernels: {launch_counts()}")
+    print(f"{tag}: one pass {pass_ms:.3f} ms ({1e3 / pass_ms:.2f} it/s, host enqueue {host:.3f} ms, "
+          f"events median of 3) on {card}")
+    print_profile(tag, prof, card)
+    return {"its": 1e3 / pass_ms, "pass_ms": pass_ms, "host_enqueue_ms": host,
+            "idle_share": prof["idle_share"], "busy_ms": prof["busy_ms"]}
+
+
+def phase_model_time(card: str) -> dict:
+    """qap_32x32_3000quadratic and tomography_100chains_64vars_counting of
+    bench.py on the card: engine passes, and for the matching the rounding
+    of compute_primal split into MCF (unary block to the host and the
+    assignment), the 2-opt polish of its matching, and the greedy start with
+    its polish."""
+    out = {}
+    g = FactorGraph()
+    gm = GraphMatchingConstructor(g, construction="left")
+    gm.construct(qap_input(32, 3000, seed=4))
+    e, build_s = timed_engine(g, schedule_mode="auto")
+    nph = {d.value: len(p) for d, p in e.phases.items()}
+    print(f"qap_32x32: {g.n_factors} factors, {len(gm.inp.edges)} quadratic terms, Engine build "
+          f"{build_s:.2f} s ({e.schedule_mode}, phases {nph})")
+    r = out["qap_32x32"] = {"build_s": build_s, "schedule_mode": e.schedule_mode,
+                            "phases": nph, **engine_time("qap_32x32", e, card)}
+    lb = e.lower_bound()
+    t = [time.perf_counter()]
+    match = solve_assignment(*gm._left_unary_costs(e))
+    t.append(time.perf_counter())
+    cands = [gm.improve_matching(match)]
+    t.append(time.perf_counter())
+    cands.append(gm.improve_matching(gm._greedy_matching()))
+    t.append(time.perf_counter())
+    best = min(cands, key=gm._matching_cost)
+    prim = gm.compute_primal(e)
+    ub = e.evaluate_primal(prim)
+    split = dict(zip(("mcf_s", "two_opt_s", "greedy_s"), np.diff(t).tolist()))
+    r.update(lb=lb, ub=ub, rel_gap=(ub - lb) / max(1.0, abs(ub)), **split)
+    print(f"qap_32x32: after {1 + 4 * MODEL_TIME_REPS + 2} passes lb {lb:.6f}; rounding "
+          f"{sum(split.values()):.3f} s = MCF {split['mcf_s']:.3f} + 2-opt {split['two_opt_s']:.3f} "
+          f"+ greedy start {split['greedy_s']:.3f} s; ub {ub:.6f}, rel gap {r['rel_gap']:.3e}")
+    if not (np.isfinite(ub) and ub >= lb - 1e-4 * abs(lb)
+            and (gm.matching(e, prim) == best).all()):
+        fail(f"qap_32x32: ub {ub}, lb {lb}, or compute_primal's matching is not the rounded one")
+
+    g = FactorGraph()
+    tomography_chains(DiscreteTomographyConstructor(g), 100, 64, 3, seed=5)
+    e, build_s = timed_engine(g, schedule_mode="auto")
+    nph = {d.value: len(p) for d, p in e.phases.items()}
+    print(f"tomography_100x64: {g.n_factors} factors, Engine build {build_s:.2f} s "
+          f"({e.schedule_mode}, phases {nph})")
+    if e.schedule_mode != "coloring":
+        fail(f"tomography_100x64: auto chose {e.schedule_mode}")
+    r = out["tomography_100x64"] = {"build_s": build_s, "phases": nph,
+                                    **engine_time("tomography_100x64", e, card)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prim = e.compute_pass_and_primal("anisotropic", Direction.forward)
+    ub = e.evaluate_primal(prim)
+    r.update(lb=e.lower_bound(), ub=ub, primal_pass_s=time.perf_counter() - t)
+    print(f"tomography_100x64: lb {r['lb']:.6f}; one forward pass with rounding "
+          f"{r['primal_pass_s']:.3f} s, ub {ub:.6f}")
+    if not (np.isfinite(r["lb"]) and np.isfinite(ub) and ub >= r["lb"] - 1e-4 * abs(r["lb"])):
+        fail(f"tomography_100x64: lb {r['lb']}, ub {ub}")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name, count, card = phase_device()
@@ -879,9 +1048,14 @@ def main() -> None:
               "grid_kernel_path_its": kernel_path_its, "native_build_s": native_s, "card": card}
     tightening = {"multicut_150k": phase_multicut_150k(card), **phase_tightening_solvers(),
                   "card": card}
+    t1 = time.perf_counter()
+    models = {**phase_model_solvers(), **phase_model_time(card), "card": card}
+    models["phase_s"] = time.perf_counter() - t1
+    print(f"models: graph matching and tomography phase {models['phase_s']:.1f} s")
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"engine": engine}))
     print(json.dumps({"tightening": tightening}))
+    print(json.dumps({"models": models}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

@@ -17,8 +17,10 @@ it, never row by row.
 arrays, ``{type: {key: np.asarray(v)}}``, and returns the port's, for
 ``Engine.set_state``; ``engine_state_to_numpy`` goes the other way.  Both
 engines build the same blocks in the same layout, so this too is a copy:
-float lanes take ``dtype``, integer lanes (``nl``, ``n1``, ``n2``) stay
-integer.
+float lanes take ``dtype`` (the counting chain's +inf lanes stay +inf),
+integer lanes (``nl``, ``n1``, ``n2``) stay integer, and the counting
+chain's ``nv`` and ``nl``, int32 in the JAX package, become the port's
+int64.
 
 ``aux_state_to_numpy`` reads the absorbed tightening triplets of either
 package's ``AuxPasses`` (its MRF and multicut passes: ``c``, ``lidx``,
@@ -77,10 +79,22 @@ def block_from_numpy(block, device="cpu", dtype=torch.float64):
     return out
 
 
+# integer lanes the port builds as int64 where the JAX package builds int32
+# (the counting chain's variable and label counts); every other integer lane
+# keeps its type
+INT64_LANES = {"counting_chain": ("nv", "nl")}
+
+
 def engine_state_from_numpy(np_state, device="cpu", dtype=torch.float64):
     """Engine state ``{type: {key: numpy array}}`` -> the port's ``{type:
-    {key: tensor}}`` on ``device``.  Always copies."""
-    return {name: block_from_numpy(block, device, dtype) for name, block in np_state.items()}
+    {key: tensor}}`` on ``device``, with the lanes of ``INT64_LANES`` as
+    int64.  Always copies."""
+    out = {name: block_from_numpy(block, device, dtype) for name, block in np_state.items()}
+    for name, keys in INT64_LANES.items():
+        for k in keys:
+            if k in out.get(name, {}):
+                out[name][k] = out[name][k].long()
+    return out
 
 
 def host_array(t: torch.Tensor, dtype=None) -> np.ndarray:

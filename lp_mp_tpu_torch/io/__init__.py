@@ -1,1 +1,1 @@
-"""Input formats of the port: UAI."""
+"""Input formats of the port: UAI and the Torresani graph matching format."""

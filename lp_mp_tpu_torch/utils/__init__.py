@@ -1,1 +1,2 @@
-"""Host-side NumPy utilities of the port: union-find and graph search."""
+"""Host-side NumPy utilities of the port: union-find, graph search, min-cost
+flow and maxflow."""

@@ -217,7 +217,12 @@ def test_port_imports_no_jax():
             "lp_mp_tpu_torch.io.uai, lp_mp_tpu_torch.aux_tighten, lp_mp_tpu_torch.factors.multicut, "
             "lp_mp_tpu_torch.messages.multicut, lp_mp_tpu_torch.models.multicut, "
             "lp_mp_tpu_torch.models.tightening, lp_mp_tpu_torch.models.cycle_separation, "
-            "lp_mp_tpu_torch.utils.graphs, lp_mp_tpu_torch.utils.union_find, chip_smoke; "
+            "lp_mp_tpu_torch.utils.graphs, lp_mp_tpu_torch.utils.union_find, "
+            "lp_mp_tpu_torch.io.torresani, lp_mp_tpu_torch.utils.mincostflow, "
+            "lp_mp_tpu_torch.utils.maxflow, lp_mp_tpu_torch.messages.equality, "
+            "lp_mp_tpu_torch.models.graph_matching, lp_mp_tpu_torch.ops.minconv, "
+            "lp_mp_tpu_torch.factors.counting, lp_mp_tpu_torch.messages.counting, "
+            "lp_mp_tpu_torch.models.tomography, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lp_mp_tpu')]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
