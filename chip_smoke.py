@@ -69,9 +69,31 @@ tree_decomposition_begin=10) over the cover as trees, its bound within
 1e-4 of the JAX package's and the engine's bound after the write-back
 keeping it.
 
+Then the exact oracles, checkpoints and the command line, on the card in
+float32 with the oracles themselves on the host.  checkpoint: the
+1000x1000 engine grid (2998000 factors) saved to an npz in a temporary
+directory, 5 more passes, loaded: the bound and every state tensor equal to
+the saved ones bit for bit and the saved primal's cost kept; then snapshot,
+one pass, restore: the bound back exactly; it prints the file's MB, save
+and load seconds and snapshot and restore ms.  oracles: mrf_grid24
+(untightened) after Solver(StandardVisitor(max_iter=50)): its local
+polytope (9800 variables, 11386 rows), the LP value at least the bound and
+within 1e-5 relative of the JAX package's (no reparametrization changes
+it), ilp_round(time_limit=60) within 1e-5 of the JAX package's optimum
+(the round-5 anchor), combi_lp within 1e-5 of the ILP, and
+Solver(exact_rounding="ilp", exact_time_limit=30) reaching the ILP's cost
+with lb <= ub, each step timed.  cli: mrf_grid24 as UAI text, qap_16x16 in
+the Torresani format and the multicut_grid40 edges as "i j w" lines go
+through python -m lp_mp_tpu_torch on the default device: the mrf and gm
+lower bounds within 1e-4 relative of the JAX package's cli.main on the same
+text, the mrf labels' cost on the host equal to the printed ub within
+1e-4, and the tightened multicut run's sqlite table holding one row per
+visited iteration, its last lowerBound the printed lb.
+
 The last lines are JSON records of the engine path, of tightening, of the
-two models, of the sharded engine, the trees and the tree Solver, a JSON
-record of the kernels, and {"ok": true, "device": {...}}.  Any failure
+two models, of the sharded engine, the trees and the tree Solver, of the
+checkpoint, the oracles and the command line, a JSON record of the kernels,
+and {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at
 once.
 """
@@ -79,10 +101,13 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import re
+import sqlite3
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,7 +118,9 @@ from lp_mp_tpu_torch import (ChainDecomposition, Direction, DiscreteTomographyCo
                              FactorGraph, GraphMatchingConstructor, GraphMatchingInput,
                              GridPottsModel, MrfConstructor, MulticutConstructor, ShardedEngine,
                              ShardedGridPotts, Solver, StandardTighteningVisitor, StandardVisitor,
-                             TreeSpec, native, random_grid)
+                             TreeSpec, build_local_polytope, combi_lp, ilp_round, load_checkpoint,
+                             native, random_grid, restore, save_checkpoint, snapshot,
+                             solve_lp_relaxation)
 from lp_mp_tpu_torch.convert import host_array
 from lp_mp_tpu_torch.kernel_check import (RTOL, check_grid_kernels, check_phase_v1,
                                           check_sharded_grid_kernels)
@@ -158,6 +185,22 @@ TREE_SIDE, TREE_L = 304, 3
 TREE_SOLVER_ITERS, TREE_SOLVER_BEGIN = 30, 10
 JAX_TREES = {"T": 9931, "V": 362, "digest": "45939ec95042f5a1", "sg": -11783.125, "fw": -10451.244140625}
 JAX_TREE_SOLVER = {"lb": -11848.4375}
+# exact oracles: mrf_grid24 (untightened) after Solver(StandardVisitor(max_iter=ORACLE_ITERS)),
+# then the local polytope's LP, ilp_round(time_limit=ORACLE_ILP_LIMIT) and combi_lp; and
+# Solver(exact_rounding="ilp", exact_time_limit=ORACLE_SOLVER_LIMIT).  The JAX package's values
+# on the CPU in float32 (tests/test_torch_model_constants.py recomputes them); the ILP's is
+# the round-5 anchor's optimum
+ORACLE_ITERS, ORACLE_ILP_LIMIT, ORACLE_SOLVER_LIMIT = 50, 60, 30
+JAX_ORACLES = {"lp": -150.4090523654313, "ilp": -133.898193359375, "n_vars": 9800,
+               "n_rows": 11386}
+# checkpoint: passes run between the save and the load
+CHECKPOINT_PASSES = 5
+# command line: mrf_grid24 as UAI text, qap_16x16 in the Torresani format and the
+# multicut_grid40 edges, through python -m lp_mp_tpu_torch; the JAX package's cli.main on
+# the same text on the CPU in float32 (tests/test_torch_model_constants.py recomputes them).
+# The gm run is qap_16x16's Solver run through text, so its bound is JAX_QAP16's
+CLI_MRF_ITERS, CLI_GM_ITERS, CLI_MC_ITERS = 50, MODEL_ITERS, 30
+JAX_CLI = {"mrf_lb": -150.6502685546875, "gm_lb": JAX_QAP16["lb"]}
 
 
 def fail(msg: str) -> None:
@@ -1304,6 +1347,225 @@ def phase_tree_solver(card: str, chains) -> dict:
             "depth": dec.max_depth, "tree_steps": s._tree_state["k"]}
 
 
+def timed(fn):
+    """(fn(), host seconds), the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def mrf_grid24_solver(visitor, **kw) -> tuple:
+    un, pairs, pw = mrf_grid24_instance()
+    s = Solver(visitor=visitor, device="cuda", dtype=torch.float32, **kw)
+    mrf = s.add_constructor(MrfConstructor)
+    mrf.add_unary_factors(un)
+    mrf.add_pairwise_factors(pairs, pw)
+    return s, mrf
+
+
+def phase_oracles(card: str) -> dict:
+    """The exact oracles on mrf_grid24 after 50 untightened Solver
+    iterations on the card: the local polytope's size and LP value (which
+    no reparametrization changes, so it is held to the JAX package's), the
+    ILP (the round-5 optimum), combiLP against the ILP, and a Solver with
+    exact_rounding="ilp".  They run on the host (HiGHS); the engine's state
+    goes to the host once per oracle call."""
+    s, mrf = mrf_grid24_solver(StandardVisitor(max_iter=ORACLE_ITERS))
+    r = solver_run("oracles: mrf_grid24", s, mrf)
+    lb = r["lb"]
+    reset_launch_counts()
+    (cost, rows, _, _), build_s = timed(lambda: build_local_polytope(s.engine))
+    lp, lp_s = timed(lambda: solve_lp_relaxation(s.engine))
+    (prim, ilp), ilp_s = timed(lambda: ilp_round(s.engine, time_limit=ORACLE_ILP_LIMIT))
+    (cprim, combi), combi_s = timed(lambda: combi_lp(s.engine))
+    if any(launch_counts().values()):
+        fail(f"oracles: the exact oracles launched grid kernels: {launch_counts()}")
+    out = {"lb": lb, "n_vars": len(cost), "n_rows": len(rows), "lp": lp, "ilp": ilp,
+           "combilp": combi, "solve_s": r["s"], "build_s": build_s, "lp_s": lp_s,
+           "ilp_s": ilp_s, "combilp_s": combi_s}
+    print(f"oracles: local polytope {len(cost)} variables, {len(rows)} rows (JAX package "
+          f"{JAX_ORACLES['n_vars']}, {JAX_ORACLES['n_rows']}), built in {build_s:.3f} s; LP "
+          f"{lp:.6f} in {lp_s:.3f} s (JAX package {JAX_ORACLES['lp']}, rel diff "
+          f"{rel(lp, JAX_ORACLES['lp']):.3e}, limit 1e-5; lb {lb:.6f})")
+    print(f"oracles: ilp_round {ilp:.6f} in {ilp_s:.3f} s (JAX package {JAX_ORACLES['ilp']}, rel "
+          f"diff {rel(ilp, JAX_ORACLES['ilp']):.3e}, limit 1e-5); combi_lp {combi:.6f} in "
+          f"{combi_s:.3f} s (rel diff to the ILP {rel(combi, ilp):.3e}, limit 1e-5) on {card}")
+    if not (len(cost) == JAX_ORACLES["n_vars"] and len(rows) == JAX_ORACLES["n_rows"]):
+        fail(f"oracles: local polytope {len(cost)} x {len(rows)}")
+    if not (lp >= lb - 1e-4 * abs(lb) and rel(lp, JAX_ORACLES["lp"]) <= 1e-5):
+        fail(f"oracles: LP {lp} against lb {lb} and the JAX package's {JAX_ORACLES['lp']}")
+    if not (prim is not None and rel(ilp, JAX_ORACLES["ilp"]) <= 1e-5):
+        fail(f"oracles: ILP {ilp}, JAX package {JAX_ORACLES['ilp']}")
+    if not (cprim is not None and rel(combi, ilp) <= 1e-5):
+        fail(f"oracles: combiLP {combi} against the ILP {ilp}")
+
+    s, mrf = mrf_grid24_solver(StandardVisitor(max_iter=ORACLE_ITERS, primal_computation_interval=25),
+                               exact_rounding="ilp", exact_time_limit=ORACLE_SOLVER_LIMIT)
+    r = out["solver_ilp"] = solver_run("oracles: Solver(exact_rounding='ilp')", s, mrf)
+    print(f"oracles: Solver(exact_rounding='ilp') ub rel diff to the ILP {rel(r['ub'], ilp):.3e} "
+          f"(limit 1e-5), lb <= ub: {r['lb'] <= r['ub']}")
+    if not (rel(r["ub"], ilp) <= 1e-5 and r["lb"] <= r["ub"]):
+        fail(f"oracles: Solver(exact_rounding='ilp') lb {r['lb']}, ub {r['ub']}, ILP {ilp}")
+    return out
+
+
+def phase_checkpoint(card: str, e: Engine) -> dict:
+    """A checkpoint of the 1000x1000, L=4 engine grid: save, 5 more passes,
+    load: the bound and every state tensor as saved, bit for bit, and the
+    saved primal's cost; then snapshot, one pass, restore: the bound as
+    before.  The engine launches no hand-written kernel."""
+    reset_launch_counts()
+    prim = e.compute_pass_and_primal("damped_uniform", Direction.forward)
+    cost = e.evaluate_primal(prim)
+    lb0 = e.lower_bound()
+    saved = snapshot(e)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "grid.npz")
+        _, save_s = timed(lambda: save_checkpoint(path, e, best_primal=prim,
+                                                  best_primal_cost=cost, iteration=1))
+        mb = os.path.getsize(path) / 1e6
+        for _ in range(CHECKPOINT_PASSES):
+            e.compute_pass("anisotropic")
+        lb_moved = e.lower_bound()
+        (lprim, lcost, _), load_s = timed(lambda: load_checkpoint(path, e))
+    lb1 = e.lower_bound()
+    same = all(torch.equal(e.state[n][k], saved[n][k]) for n in saved for k in saved[n])
+    lcost_eval = e.evaluate_primal(lprim)
+    snap, snap_s = timed(lambda: snapshot(e))
+    e.compute_pass("anisotropic")
+    lb_pass = e.lower_bound()
+    _, restore_s = timed(lambda: restore(e, snap))
+    lb2 = e.lower_bound()
+    counts = launch_counts()
+    print(f"checkpoint: {e.n_factors} factors, {mb:.1f} MB npz; save {save_s:.3f} s, load "
+          f"{load_s:.3f} s; bound saved {lb0!r}, after {CHECKPOINT_PASSES} passes {lb_moved!r}, "
+          f"loaded {lb1!r}; state equal to the saved one: {same}; primal cost saved {cost!r}, "
+          f"loaded {lcost!r}, evaluated {lcost_eval!r}")
+    print(f"checkpoint: snapshot {snap_s * 1e3:.3f} ms, one pass to {lb_pass!r}, restore "
+          f"{restore_s * 1e3:.3f} ms to {lb2!r}; kernel launches {counts} on {card}")
+    if any(counts.values()):
+        fail(f"checkpoint: the engine launched grid kernels: {counts}")
+    if not (lb1 == lb0 and same and lcost == cost and lcost_eval == cost and lb2 == lb0):
+        fail(f"checkpoint: bound {lb1} / {lb2} against {lb0}, state equal {same}, primal cost "
+             f"{lcost} / {lcost_eval} against {cost}")
+    return {"mb": mb, "save_s": save_s, "load_s": load_s, "snapshot_ms": snap_s * 1e3,
+            "restore_ms": restore_s * 1e3, "lb": lb0, "lb_after_passes": lb_moved}
+
+
+def uai_text(un, pairs, pw) -> str:
+    """A unary and dense pairwise MRF as UAI MARKOV text (%.17g; each
+    table column-major, the first scope variable fastest)."""
+    n, labels = un.shape
+    lines = ["MARKOV", str(n), " ".join([str(labels)] * n), str(n + len(pairs))]
+    lines += [f"1 {v}" for v in range(n)] + [f"2 {i} {j}" for i, j in pairs]
+    for u in un:
+        lines += ["", str(labels), " ".join(f"{x:.17g}" for x in u)]
+    for m in pw:
+        lines += ["", str(m.size), " ".join(f"{x:.17g}" for x in m.ravel(order="F"))]
+    return "\n".join(lines) + "\n"
+
+
+def torresani_text(inp: GraphMatchingInput) -> str:
+    lines = [f"p {inp.n_left} {inp.n_right} {len(inp.assignments)} {len(inp.edges)}"]
+    lines += [f"a {k} {i} {j} {c:.17g}" for k, (i, j, c) in enumerate(inp.assignments)]
+    lines += [f"e {a} {b} {c:.17g}" for a, b, c in inp.edges]
+    return "\n".join(lines) + "\n"
+
+
+def multicut_text(pairs, costs) -> str:
+    return "".join(f"{i} {j} {c:.17g}\n" for (i, j), c in zip(pairs, costs))
+
+
+def cli_inputs(d: str) -> dict:
+    """The three instances of the cli phase as files in ``d``."""
+    files = {"mrf": (os.path.join(d, "mrf_grid24.uai"), uai_text(*mrf_grid24_instance())),
+             "gm": (os.path.join(d, "qap_16x16.txt"), torresani_text(qap_input(16, 600, seed=9))),
+             "multicut": (os.path.join(d, "multicut_grid40.txt"),
+                          multicut_text(*multicut_grid40_instance()))}
+    for path, text in files.values():
+        with open(path, "w") as f:
+            f.write(text)
+    return {k: path for k, (path, _) in files.items()}
+
+
+def printed_bounds(out: str) -> tuple:
+    """(lower, upper) bound of a cli run's output."""
+    found = dict(re.findall(r"^(lower|upper) bound: (\S+)$", out, flags=re.M))
+    return float(found["lower"]), float(found["upper"])
+
+
+def run_cli(*args: str) -> tuple:
+    """``python -m lp_mp_tpu_torch *args`` from this checkout, on the default
+    device: (lower bound, upper bound, seconds)."""
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lp_mp_tpu_torch", *args], capture_output=True,
+                       text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    sec = time.perf_counter() - t
+    if r.returncode != 0:
+        fail(f"cli: {' '.join(args[:2])} exited {r.returncode}: {r.stderr[-2000:]}")
+    return (*printed_bounds(r.stdout), sec)
+
+
+def phase_cli(card: str) -> dict:
+    """The three subcommands in subprocesses on the card: mrf_grid24 (its lb
+    against the JAX cli's, its labels' cost on the host against the printed
+    ub), qap_16x16 (lb against the JAX cli's) and multicut_grid40 with
+    tightening and the sqlite visitor (one row per visited iteration, the
+    last lowerBound the printed lb)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        files = cli_inputs(d)
+        labels_path = os.path.join(d, "labels.txt")
+        lb, ub, sec = run_cli("mrf", files["mrf"], "--maxIter", str(CLI_MRF_ITERS), "-v", "0",
+                              "--outputFile", labels_path)
+        lab = np.loadtxt(labels_path, dtype=np.int64)
+        un, pairs, pw = mrf_grid24_instance()
+        host = float(un[np.arange(len(un)), lab].sum()
+                     + pw[np.arange(len(pairs)), lab[pairs[:, 0]], lab[pairs[:, 1]]].sum())
+        out["mrf"] = {"lb": lb, "ub": ub, "labels_cost": host, "n_labels": int(lab.size), "s": sec}
+        print(f"cli: mrf {files['mrf']} --maxIter {CLI_MRF_ITERS} in {sec:.2f} s: lb {lb!r}, ub "
+              f"{ub!r}; JAX cli lb {JAX_CLI['mrf_lb']!r} (rel diff {rel(lb, JAX_CLI['mrf_lb']):.3e}, "
+              f"limit 1e-4); {lab.size} labels, their cost on the host {host!r} (rel diff to ub "
+              f"{rel(host, ub):.3e}, limit 1e-4)")
+        if not (rel(lb, JAX_CLI["mrf_lb"]) <= 1e-4 and lab.size == len(un)
+                and rel(host, ub) <= 1e-4):
+            fail(f"cli: mrf lb {lb}, ub {ub}, {lab.size} labels costing {host}")
+
+        lb, ub, sec = run_cli("gm", files["gm"], "--construction", "left", "--maxIter",
+                              str(CLI_GM_ITERS), "-v", "0")
+        out["gm"] = {"lb": lb, "ub": ub, "s": sec}
+        print(f"cli: gm qap_16x16 --construction left --maxIter {CLI_GM_ITERS} in {sec:.2f} s: lb "
+              f"{lb!r}, ub {ub!r}; JAX cli lb {JAX_CLI['gm_lb']!r} (rel diff "
+              f"{rel(lb, JAX_CLI['gm_lb']):.3e}, limit 1e-4)")
+        if not (rel(lb, JAX_CLI["gm_lb"]) <= 1e-4 and ub >= lb):
+            fail(f"cli: gm lb {lb}, ub {ub}")
+
+        db = os.path.join(d, "bench.db")
+        lb, ub, sec = run_cli("multicut", files["multicut"], "--maxIter", str(CLI_MC_ITERS),
+                              "--tighten", "--tightenIteration", "10", "--tightenInterval", "10",
+                              "--databaseFile", db, "--datasetName", "chip", "-v", "0")
+        conn = sqlite3.connect(db)
+        try:
+            rows = conn.execute(
+                "SELECT i.iteration, i.lowerBound FROM iterations i JOIN solvers s "
+                "ON s.id = i.solver_id WHERE s.name = 'lp_mp_tpu_torch' ORDER BY i.iteration"
+            ).fetchall()
+        finally:
+            conn.close()
+        its = [it for it, _ in rows]
+        db_lb = rows[-1][1] if rows else float("nan")
+        out["multicut"] = {"lb": lb, "ub": ub, "db_rows": len(rows), "db_last_lb": db_lb, "s": sec}
+        print(f"cli: multicut multicut_grid40 --maxIter {CLI_MC_ITERS} --tighten in {sec:.2f} s: lb "
+              f"{lb!r}, ub {ub!r}; {len(rows)} iteration rows, last lowerBound {db_lb!r} (rel diff "
+              f"to lb {rel(db_lb, lb):.3e}, limit 1e-6) on {card}")
+        if not (rows and its == list(range(len(rows))) and len(rows) <= CLI_MC_ITERS
+                and rel(db_lb, lb) <= 1e-6 and lb <= ub):
+            fail(f"cli: multicut lb {lb}, ub {ub}, iteration rows {its}, last lowerBound {db_lb}")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     name, count, card = phase_device()
@@ -1337,6 +1599,9 @@ def main() -> None:
     t1 = time.perf_counter()
     sharded_engine = {**phase_sharded_engine(card, g_grid, g_mc), "card": card}
     sharded_engine["phase_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    checkpoint = {**phase_checkpoint(card, eg), "card": card}
+    checkpoint["phase_s"] = time.perf_counter() - t1
     del g_grid, g_mc, eg, ec
     t1 = time.perf_counter()
     trees, chains = phase_trees(card)
@@ -1346,6 +1611,14 @@ def main() -> None:
     tree_solver_rec["phase_s"] = time.perf_counter() - t1
     print(f"sharded_engine, trees, tree_solver: phases {sharded_engine['phase_s']:.1f}, "
           f"{trees['phase_s']:.1f}, {tree_solver_rec['phase_s']:.1f} s")
+    t1 = time.perf_counter()
+    oracles = {**phase_oracles(card), "card": card}
+    oracles["phase_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cli = {**phase_cli(card), "card": card}
+    cli["phase_s"] = time.perf_counter() - t1
+    print(f"checkpoint, oracles, cli: phases {checkpoint['phase_s']:.1f}, "
+          f"{oracles['phase_s']:.1f}, {cli['phase_s']:.1f} s")
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"engine": engine}))
     print(json.dumps({"tightening": tightening}))
@@ -1353,6 +1626,9 @@ def main() -> None:
     print(json.dumps({"sharded_engine": sharded_engine}))
     print(json.dumps({"trees": trees}))
     print(json.dumps({"tree_solver": tree_solver_rec}))
+    print(json.dumps({"checkpoint": checkpoint}))
+    print(json.dumps({"oracles": oracles}))
+    print(json.dumps({"cli": cli}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

@@ -20,16 +20,30 @@ min-convolution DPs).  The generic engine also runs sharded over a list of
 devices (``ShardedEngine``), and an MRF or any factor graph decomposes into
 trees solved exactly (``ChainDecomposition``, ``GeneralTreeDecomposition``
 over ``TreeSpec``s, the ``VECTOR_EQUALITY`` coupling, and the ``Solver``'s
-switch to trees).  The package imports torch and numpy, never JAX and never
+switch to trees).  The exact oracles export the local polytope of any of
+these models (``build_local_polytope``, ``export_lp_text``,
+``solve_lp_relaxation``) and round exactly through HiGHS (``ilp_round``,
+``solve_ilp``, ``combi_lp``, ``Solver(exact_rounding=...)``); a solve
+stops and resumes through ``save_checkpoint``/``load_checkpoint`` (the JAX
+package's file layout) or in memory through ``snapshot``/``restore``; the
+sqlite and JSONL visitors record every iteration; ``python -m
+lp_mp_tpu_torch {mrf,gm,multicut}`` is the command line.  The package
+imports torch and numpy (scipy inside the oracles), never JAX and never
 ``lp_mp_tpu``.
 """
 from .config import (Chirality, Direction, LpControl, MessageSchedule,
                      ReparametrizationMode, eps_for, real_dtype, set_dtype)
 from .aux_tighten import AuxPasses
-from .convert import (aux_state_from_numpy, aux_state_to_numpy, engine_state_from_numpy,
-                      engine_state_to_numpy, grid_state_from_numpy, sharded_state_from_jax)
+from .checkpoint import load_checkpoint, restore, save_checkpoint, snapshot
+from .combilp import combi_lp
+from .convert import (aux_state_from_numpy, aux_state_to_numpy, engine_primal_from_numpy,
+                      engine_state_from_numpy, engine_state_to_numpy, grid_state_from_numpy,
+                      sharded_state_from_jax)
 from .engine import Engine
 from .graph import FactorGraph
+from .io.ilp import IncrementalIlp, ilp_round, solve_ilp
+from .io.lp_export import (build_local_polytope, export_lp_file, export_lp_text,
+                           solve_lp_relaxation)
 from .io.torresani import GraphMatchingInput
 from .messages.vector_equality import VECTOR_EQUALITY
 from .models.graph_matching import GraphMatchingConstructor
@@ -43,6 +57,7 @@ from .solver import Solver
 from .trees import ChainDecomposition
 from .trees_general import GeneralTreeDecomposition, TreeSpec
 from .visitors import StandardTighteningVisitor, StandardVisitor
+from .visitors_db import JsonlVisitor, SqliteVisitor
 
 __all__ = [
     "Chirality", "Direction", "LpControl", "MessageSchedule",
@@ -54,6 +69,10 @@ __all__ = [
     "GridPottsModel", "random_grid", "MrfConstructor", "MulticutConstructor", "ShardedGridPotts", "Solver",
     "StandardTighteningVisitor", "StandardVisitor", "ShardedEngine", "ChainDecomposition",
     "GeneralTreeDecomposition", "TreeSpec", "VECTOR_EQUALITY",
+    "load_checkpoint", "restore", "save_checkpoint", "snapshot", "combi_lp",
+    "engine_primal_from_numpy", "IncrementalIlp", "ilp_round", "solve_ilp",
+    "build_local_polytope", "export_lp_file", "export_lp_text", "solve_lp_relaxation",
+    "JsonlVisitor", "SqliteVisitor",
 ]
 
 __version__ = "0.1.0"

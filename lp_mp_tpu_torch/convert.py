@@ -15,7 +15,9 @@ it, never row by row.
 
 ``engine_state_from_numpy`` takes the JAX ``Engine``'s state as numpy
 arrays, ``{type: {key: np.asarray(v)}}``, and returns the port's, for
-``Engine.set_state``; ``engine_state_to_numpy`` goes the other way.  Both
+``Engine.set_state``; ``engine_state_to_numpy`` goes the other way, for a
+state or a primal, and ``engine_primal_from_numpy`` brings a host primal
+back in the dtypes of the engine's own primal blocks.  Both
 engines build the same blocks in the same layout, so this too is a copy:
 float lanes take ``dtype`` (the counting chain's +inf lanes stay +inf),
 integer lanes (``nl``, ``n1``, ``n2``) stay integer, and the counting
@@ -147,6 +149,16 @@ def aux_state_from_numpy(np_state, device="cpu", dtype=torch.float64):
 
 def engine_state_to_numpy(state):
     """The port's engine state (or a primal) -> ``{type: {key: numpy
-    array}}`` on the host."""
+    array}}`` on the host, one transfer per tensor."""
     return {name: {k: v.detach().cpu().numpy() for k, v in block.items()}
             for name, block in state.items()}
+
+
+def engine_primal_from_numpy(np_prim, like):
+    """A primal ``{type: {key: numpy array}}`` (either package's labels,
+    int32 or int64) as tensors with the dtype and device of the blocks of
+    ``like``, the engine's own primal (``Engine.init_primal()``)."""
+    return {name: {k: torch.as_tensor(np.asarray(v)).to(device=like[name][k].device,
+                                                           dtype=like[name][k].dtype)
+                   for k, v in block.items()}
+            for name, block in np_prim.items()}

@@ -236,7 +236,16 @@ class Engine:
         self.ftypes: dict[str, FactorType] = {}
         self.f_local = np.zeros(n, dtype=np.int64)
         type_rows: dict[str, int] = {}
-        built_per_type: dict[str, list[dict]] = {}
+        # per type, in row order: built block chunks and runs of item data.
+        # A type's item chunks that no block chunk separates are built in
+        # one ``build`` call, so the type pads its own instances (the
+        # counting chain forces a short chain's padded variables to label
+        # 0); ``_concat_blocks`` pads across the rest with PAD_COST.  The
+        # JAX package builds every item chunk alone: projections of two
+        # lengths added between other factors get PAD_COST on every label
+        # of a padded variable, and a bound of order PAD_COST (ROADMAP.md
+        # queue 3).
+        parts_per_type: dict[str, list] = {}
         type_fids: dict[str, list[np.ndarray]] = {}
         for ch in graph.factor_chunks():
             name = ch.ftype.name
@@ -246,12 +255,17 @@ class Engine:
             type_rows[name] = off + ch.n
             type_fids.setdefault(name, []).append(
                 np.arange(ch.start, ch.start + ch.n, dtype=np.int64))
-            built = ch.ftype.build(ch.payload) if ch.kind == "items" \
-                else ch.payload
-            built_per_type.setdefault(name, []).append(built)
+            parts = parts_per_type.setdefault(name, [])
+            if ch.kind == "items" and parts and isinstance(parts[-1], list):
+                parts[-1].extend(ch.payload)
+            else:
+                parts.append(list(ch.payload) if ch.kind == "items" else ch.payload)
         self._type_fids = {k: np.concatenate(v) for k, v in type_fids.items()}
-        self.state = {name: block_from_numpy(_concat_blocks(blocks), self.device, self.dtype)
-                      for name, blocks in built_per_type.items()}
+        self.state = {
+            name: block_from_numpy(_concat_blocks([self.ftypes[name].build(p) if isinstance(p, list)
+                                                   else p for p in parts]),
+                                   self.device, self.dtype)
+            for name, parts in parts_per_type.items()}
 
         # ---- message blocks (chunked) ---------------------------------------
         self.mtypes: dict[str, MessageType] = {}

@@ -19,8 +19,7 @@ Padding convention: variables beyond ``nv`` are forced to label 0 with zero
 cost (lam[v>=nv] = [0, inf, ...]), labels beyond ``nl`` and sums beyond the
 instance's cost-vector length carry +inf.  These are real +inf, not
 ``PAD_COST``: every chain-side marginal passes ``mask_pad``, which zeroes
-them, before a weight multiplies it.  Not ported: the LP hooks (ROADMAP.md
-queue 1 item 9).
+them, before a weight multiplies it.
 """
 from __future__ import annotations
 
@@ -145,6 +144,49 @@ class CountingChainType(FactorType):
     def dual_vector(self, costs):
         F = costs["lam"].shape[0]
         return torch.cat([costs["lam"].reshape(F, -1), costs["proj"].reshape(F, -1)], dim=1)
+
+    # -- constraint export -------------------------------------------------------
+    # Arithmetic encoding instead of the exponential config table: per
+    # member slot k a label simplex y[k, :], a sum simplex z[:], and the
+    # linear tie sum_{k,l} l*y[k,l] == sum_s s*z[s].  Exact for the MILP
+    # (integral y forces z); a relaxation of the exact counting marginal
+    # polytope for the LP (still a valid lower bound), the same shape DD_ILP
+    # builds for counting factors.  The slices [:nv, :nl] and [:S] keep the
+    # padding lanes out; the +inf lanes inside them stay +inf.
+    def lp_vars(self, state_row, data):
+        nv, nl, pc = data
+        S = len(pc)
+        lam = np.asarray(state_row["lam"][:nv, :nl], dtype=np.float64)
+        proj = np.asarray(state_row["proj"][:S], dtype=np.float64)
+        costs = np.concatenate([lam.ravel(), proj])
+        rows, rhs = [], []
+        for k in range(nv):
+            rows.append({k * nl + l: 1.0 for l in range(nl)})
+            rhs.append(1.0)
+        z0 = nv * nl
+        rows.append({z0 + s: 1.0 for s in range(S)})
+        rhs.append(1.0)
+        tie = {k * nl + l: float(l) for k in range(nv) for l in range(1, nl)}
+        for s in range(1, S):
+            tie[z0 + s] = -float(s)
+        rows.append(tie)
+        rhs.append(0.0)
+        return costs, rows, rhs, (nv, nl, S, state_row["lam"].shape[0])
+
+    def lp_fix(self, prim_row, meta):
+        nv, nl, S, _ = meta
+        x = np.asarray(prim_row["x"])[:nv]
+        v = np.zeros(nv * nl + S)
+        v[np.arange(nv) * nl + x] = 1.0
+        v[nv * nl + int(x.sum())] = 1.0
+        return v
+
+    def lp_read(self, values, meta):
+        nv, nl, S, vmax = meta
+        y = values[:nv * nl].reshape(nv, nl)
+        x = np.zeros(vmax, dtype=np.int32)   # padded slots -> label 0
+        x[:nv] = np.argmax(y, axis=1)
+        return {"x": x}
 
 
 COUNTING_CHAIN = CountingChainType()

@@ -16,9 +16,8 @@ pinned by test/multicut.cpp):
 
 Blocks are built in float64 numpy; the engine casts them once to its device
 and dtype.  The numpy pattern tables go to a device once per (device,
-dtype), through ``device_table``.  The LP-export hooks of the JAX types
-(``lp_vars``, ``lp_fix``, ``lp_read``) belong to the exact oracles, which
-are not ported yet.
+dtype), through ``device_table``.  The LP-export hooks (``lp_vars``,
+``lp_fix``, ``lp_read``) work on host numpy rows.
 """
 from __future__ import annotations
 
@@ -65,6 +64,29 @@ def _patterns_value(c: torch.Tensor, e: torch.Tensor, patterns: np.ndarray) -> t
     return _inf_unless(valid, val)
 
 
+def _patterns_lp_vars(state_row, patterns: np.ndarray):
+    """LP block of a pattern-cost factor: variable 0 is the all-uncut
+    configuration, variable 1 + r is pattern row r."""
+    c = np.concatenate([[0.0], np.asarray(state_row["c"], dtype=np.float64)])
+    return c, [{k: 1.0 for k in range(1 + patterns.shape[0])}], [1.0], None
+
+
+def _patterns_lp_fix(prim_row, patterns: np.ndarray) -> np.ndarray:
+    e = np.asarray([int(prim_row[f"e{s + 1}"]) for s in range(patterns.shape[1])])
+    v = np.zeros(1 + patterns.shape[0])
+    if not e.any():
+        v[0] = 1.0
+    else:
+        v[1 + int(np.nonzero((patterns == e).all(axis=1))[0][0])] = 1.0
+    return v
+
+
+def _patterns_lp_read(values, patterns: np.ndarray) -> dict:
+    k = int(np.argmax(values))
+    e = np.zeros(patterns.shape[1], np.int64) if k == 0 else patterns[k - 1]
+    return {f"e{s + 1}": int(e[s]) for s in range(patterns.shape[1])}
+
+
 class MulticutEdgeType(FactorType):
     name = "multicut_edge"
 
@@ -98,6 +120,19 @@ class MulticutEdgeType(FactorType):
     def dual_vector(self, costs):
         return costs["c"][:, None]
 
+    # -- constraint export: configs (uncut, cut) --------------------------
+    def lp_vars(self, state_row, data):
+        c = float(state_row["c"])
+        return np.asarray([0.0, c]), [{0: 1.0, 1: 1.0}], [1.0], None
+
+    def lp_fix(self, prim_row, meta):
+        v = np.zeros(2)
+        v[int(prim_row["x"])] = 1.0
+        return v
+
+    def lp_read(self, values, meta):
+        return {"x": int(np.argmax(values))}
+
 
 class MulticutTripletType(FactorType):
     name = "multicut_triplet"
@@ -120,6 +155,16 @@ class MulticutTripletType(FactorType):
 
     def dual_vector(self, costs):
         return costs["c"]
+
+    # -- constraint export: 5 configs = all-uncut + TRIPLET_PATTERNS ------
+    def lp_vars(self, state_row, data):
+        return _patterns_lp_vars(state_row, TRIPLET_PATTERNS)
+
+    def lp_fix(self, prim_row, meta):
+        return _patterns_lp_fix(prim_row, TRIPLET_PATTERNS)
+
+    def lp_read(self, values, meta):
+        return _patterns_lp_read(values, TRIPLET_PATTERNS)
 
 
 def _k4_cut_patterns() -> np.ndarray:
@@ -166,6 +211,16 @@ class MulticutOddWheelType(FactorType):
 
     def dual_vector(self, costs):
         return costs["c"]
+
+    # -- constraint export: 15 configs = all-uncut + ODD_WHEEL_PATTERNS ---
+    def lp_vars(self, state_row, data):
+        return _patterns_lp_vars(state_row, ODD_WHEEL_PATTERNS)
+
+    def lp_fix(self, prim_row, meta):
+        return _patterns_lp_fix(prim_row, ODD_WHEEL_PATTERNS)
+
+    def lp_read(self, values, meta):
+        return _patterns_lp_read(values, ODD_WHEEL_PATTERNS)
 
 
 def _wheel_tables(k: int):
@@ -382,11 +437,39 @@ class MulticutWheelKType(FactorType):
         sp = costs["sp"]
         return torch.cat([sp, costs["rim"], costs["tri"].reshape(sp.shape[0], -1)], dim=1)
 
+    # -- constraint export ---------------------------------------------------
     def configs(self) -> np.ndarray:
         """The strict cut configurations (``_wheel_cut_configs``)."""
         if self._configs is None:
             self._configs = _wheel_cut_configs(self.k)
         return self._configs
+
+    def lp_vars(self, state_row, data):
+        cfg = self.configs().astype(np.float64)
+        w = np.concatenate([np.asarray(state_row["sp"], dtype=np.float64),
+                            np.asarray(state_row["rim"], dtype=np.float64)])
+        c = cfg @ w
+        # add hub-triangle slot costs per config
+        tri = np.asarray(state_row["tri"], dtype=np.float64)   # [k, 4]
+        k = self.k
+        for j, row in enumerate(self.configs()):
+            for i in range(k):
+                bits = (row[i], row[(i + 1) % k], row[k + i])
+                hit = np.nonzero((TRIPLET_PATTERNS ==
+                                  np.asarray(bits)).all(axis=1))[0]
+                if len(hit):
+                    c[j] += tri[i, int(hit[0])]
+        return c, [{j: 1.0 for j in range(len(c))}], [1.0], cfg
+
+    def lp_fix(self, prim_row, meta):
+        e = np.asarray(prim_row["e"], dtype=np.int32)
+        v = np.zeros(meta.shape[0])
+        hit = np.nonzero((meta == e).all(axis=1))[0]
+        v[int(hit[0])] = 1.0
+        return v
+
+    def lp_read(self, values, meta):
+        return {"e": meta[int(np.argmax(values))].astype(np.int64)}
 
 
 MULTICUT_EDGE = MulticutEdgeType()

@@ -17,7 +17,8 @@ import torch
 
 from ..ops.reductions import min_except, two_min
 from ..registry import FactorType
-from .simplex import BUILD_DTYPE, _inf_unless, _lane, _pack_padded, _unset
+from .simplex import (BUILD_DTYPE, _inf_unless, _lane, _pack_padded, _pair_fix, _pair_read,
+                      _unset)
 
 
 class PairwisePottsType(FactorType):
@@ -91,6 +92,23 @@ class PairwisePottsType(FactorType):
 
     def dual_vector(self, costs):
         return torch.cat([costs["msg1"], costs["msg2"]], dim=1)
+
+    # -- constraint export: densified (the O(L) factor exports its O(L^2)
+    # configuration polytope, pairwise_potts == PairwiseSimplex semantics)
+    def lp_vars(self, state_row, data):
+        nl = int(state_row["nl"])
+        m1 = np.asarray(state_row["msg1"][:nl], dtype=np.float64)
+        m2 = np.asarray(state_row["msg2"][:nl], dtype=np.float64)
+        diff = float(state_row["diff"])
+        c = m1[:, None] + m2[None, :] + diff * (1.0 - np.eye(nl))
+        return (c.ravel(), [{k: 1.0 for k in range(nl * nl)}], [1.0],
+                (nl, nl))
+
+    def lp_fix(self, prim_row, meta):
+        return _pair_fix(prim_row, meta)
+
+    def lp_read(self, values, meta):
+        return _pair_read(values, meta)
 
 
 PAIRWISE_POTTS = PairwisePottsType()

@@ -58,6 +58,18 @@ def _feasible(x: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     return (x < 0) | (lanes == x)
 
 
+def _pair_fix(prim_row, meta) -> np.ndarray:
+    """LP block of an (n1, n2) pairwise configuration under fixed labels."""
+    v = np.zeros(meta[0] * meta[1])
+    v[int(prim_row["x1"]) * meta[1] + int(prim_row["x2"])] = 1.0
+    return v
+
+
+def _pair_read(values, meta) -> dict:
+    k = int(np.argmax(values))
+    return {"x1": k // meta[1], "x2": k % meta[1]}
+
+
 class UnarySimplexType(FactorType):
     """All unary simplex factors as one [F, L] tensor."""
 
@@ -95,6 +107,20 @@ class UnarySimplexType(FactorType):
 
     def dual_vector(self, costs):
         return costs["c"].reshape(costs["c"].shape[0], -1)
+
+    # -- constraint export (factors_messages.hxx:3441-3619 analogue) -------
+    def lp_vars(self, state_row, data):
+        nl = int(state_row["nl"])
+        c = np.asarray(state_row["c"][:nl], dtype=np.float64)
+        return c, [{k: 1.0 for k in range(nl)}], [1.0], (nl,)
+
+    def lp_fix(self, prim_row, meta):
+        v = np.zeros(meta[0])
+        v[int(prim_row["x"])] = 1.0
+        return v
+
+    def lp_read(self, values, meta):
+        return {"x": int(np.argmax(values))}
 
 
 class PairwiseSimplexType(FactorType):
@@ -147,6 +173,18 @@ class PairwiseSimplexType(FactorType):
     def dual_vector(self, costs):
         return costs["c"].reshape(costs["c"].shape[0], -1)
 
+    def lp_vars(self, state_row, data):
+        n1, n2 = int(state_row["n1"]), int(state_row["n2"])
+        c = np.asarray(state_row["c"][:n1, :n2], dtype=np.float64)
+        return (c.ravel(), [{k: 1.0 for k in range(n1 * n2)}], [1.0],
+                (n1, n2))
+
+    def lp_fix(self, prim_row, meta):
+        return _pair_fix(prim_row, meta)
+
+    def lp_read(self, values, meta):
+        return _pair_read(values, meta)
+
 
 class TernarySimplexType(FactorType):
     """Dense ternary simplex [F, L1, L2, L3]: the tightening triplet factor
@@ -191,6 +229,26 @@ class TernarySimplexType(FactorType):
 
     def dual_vector(self, costs):
         return costs["c"].reshape(costs["c"].shape[0], -1)
+
+    def lp_vars(self, state_row, data):
+        sh = tuple(np.shape(data))
+        c = np.asarray(state_row["c"][tuple(slice(0, s) for s in sh)],
+                       dtype=np.float64)
+        n = int(np.prod(sh))
+        return c.ravel(), [{k: 1.0 for k in range(n)}], [1.0], sh
+
+    def lp_fix(self, prim_row, meta):
+        _, l2, l3 = meta
+        v = np.zeros(int(np.prod(meta)))
+        k = (int(prim_row["x1"]) * l2 + int(prim_row["x2"])) * l3 \
+            + int(prim_row["x3"])
+        v[k] = 1.0
+        return v
+
+    def lp_read(self, values, meta):
+        _, l2, l3 = meta
+        k = int(np.argmax(values))
+        return {"x1": k // (l2 * l3), "x2": (k // l3) % l2, "x3": k % l3}
 
 
 UNARY_SIMPLEX = UnarySimplexType()

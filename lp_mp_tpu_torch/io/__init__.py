@@ -1,1 +1,3 @@
-"""Input formats of the port: UAI and the Torresani graph matching format."""
+"""Input and output of the port: the UAI and Torresani readers, the LP
+export of the local polytope (``lp_export``) and the exact ILP oracle over
+it (``ilp``)."""

@@ -16,7 +16,7 @@ the projection cost folded in) over later ones, and the local slot:
 The chain keeps real +inf in ``lam`` and ``proj``; every chain-side
 marginal passes ``mask_pad`` (which zeroes |delta| >= PAD_COST/2, +inf
 included) before the engine weights it, so no inf * 0 or inf - inf reaches
-a state.  Not ported: the LP coupling (ROADMAP.md queue 1 item 9).
+a state.
 """
 from __future__ import annotations
 
@@ -133,6 +133,14 @@ class UnaryCountingMessage(MessageType):
         l = left_primal["x"][lidx]
         r = right_primal["x"][ridx, data["pos"]]
         return (l >= 0) & (l == r)
+
+    # -- constraint export: unary marginal == counting slot marginal -------
+    def lp_coupling(self, lmeta, rmeta, data):
+        L = lmeta[0]
+        nv, nl, S, _ = rmeta
+        pos = int(data)
+        return [({lab: 1.0}, {pos * nl + lab: -1.0}, 0.0)
+                for lab in range(min(L, nl))]
 
 
 UNARY_COUNTING = UnaryCountingMessage()

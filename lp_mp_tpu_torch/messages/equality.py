@@ -13,8 +13,7 @@ vector.hxx:315-323) and reparametrization touches one entry per side.
 Every candidate of a left node is its own message, so one phase repeats a
 row index; the (row, entry) pairs are distinct, and the scatter is an
 out-of-place ``index_put(..., accumulate=True)``.  Not ported: the pull
-hooks (the pull pass is not ported) and the LP coupling (ROADMAP.md queue 1
-item 9).
+hooks (the pull pass is not ported).
 """
 from __future__ import annotations
 
@@ -90,6 +89,11 @@ class EqualityMessage(MessageType):
         l = left_primal["x"][lidx]
         r = right_primal["x"][ridx]
         return ((l >= 0) & (r >= 0)) & ((l == data["li"]) == (r == data["ri"]))
+
+    # -- constraint export: left indicator == right indicator ----------------
+    def lp_coupling(self, lmeta, rmeta, data):
+        li, ri = int(data[0]), int(data[1])
+        return [({li: 1.0}, {ri: -1.0}, 0.0)]
 
 
 EQUALITY = EqualityMessage()

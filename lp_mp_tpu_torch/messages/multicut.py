@@ -13,9 +13,8 @@ Static per-message data (wheel slots, pattern permutations) is built as
 int64, the index type of ``torch.gather`` and of advanced indexing; the
 JAX package builds it as int32.  Every scatter is out of place
 (``index_add`` / ``index_put``, accumulating where indices may repeat).  The
-scatter-free pull hooks (``pull_left``/``pull_right``) and the LP-export
-coupling (``lp_coupling``) of the JAX types serve the TPU pull pass and the
-exact oracles, which the port does not have.
+scatter-free pull hooks (``pull_left``/``pull_right``) of the JAX types
+serve the TPU pull pass, which the port does not have.
 """
 from __future__ import annotations
 
@@ -137,6 +136,11 @@ class _EdgePatternMessage(MessageType):
         l = left_primal["x"][lidx]
         return (l >= 0) & (l == right_primal[self._key()][ridx])
 
+    # -- constraint export: edge cut indicator == sum of the right factor's
+    # configs cutting this slot (config 0 = all-uncut) ----------------------
+    def lp_coupling(self, lmeta, rmeta, data):
+        return [({1: 1.0}, {1 + int(k): -1.0 for k in self.cut_rows}, 0.0)]
+
 
 class MulticutEdgeTripletMessage(_EdgePatternMessage):
     right_type = MULTICUT_TRIPLET
@@ -234,6 +238,11 @@ class MulticutEdgeWheelKMessage(MessageType):
         l = left_primal["x"][lidx]
         return (l >= 0) & (l == right_primal["e"][ridx, data["slot"]])
 
+    # -- constraint export: edge cut == sum of wheel configs cutting slot --
+    def lp_coupling(self, lmeta, rmeta, data):
+        cut = np.nonzero(rmeta[:, int(data)] == 1)[0]
+        return [({1: 1.0}, {int(j): -1.0 for j in cut}, 0.0)]
+
 
 class MulticutTripletWheelKMessage(MessageType):
     """Hub-triangle triplet <-> odd-k-wheel message over the triplet's
@@ -320,6 +329,19 @@ class MulticutTripletWheelKMessage(MessageType):
             r = right_primal["e"][ridx, data["eperm"][:, t - 1]]
             ok &= (l >= 0) & (l == r)
         return ok
+
+    # -- constraint export: triplet config == sum of wheel configs whose
+    # bits on the triangle's 3 wheel slots realize the same pattern ---------
+    def lp_coupling(self, lmeta, rmeta, data):
+        eperm = np.asarray(data["eperm"])
+        rows = []
+        bits_all = rmeta[:, eperm]                              # [C, 3]
+        # triplet var 0 = all-uncut; vars 1..4 = TRIPLET_PATTERNS rows
+        for r in range(-1, 4):
+            bits = np.zeros(3, np.int64) if r < 0 else TRIPLET_PATTERNS[r]
+            hit = np.nonzero((bits_all == bits).all(axis=1))[0]
+            rows.append(({r + 1: 1.0}, {int(j): -1.0 for j in hit}, 0.0))
+        return rows
 
 
 MULTICUT_EDGE_TRIPLET_0 = MulticutEdgeTripletMessage(0)

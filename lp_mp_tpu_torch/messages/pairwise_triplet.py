@@ -111,6 +111,23 @@ class PairwiseTripletMessage(MessageType):
         return (l1 >= 0) & (l2 >= 0) & \
             (l1 == right_primal[k1][ridx]) & (l2 == right_primal[k2][ridx])
 
+    # -- constraint export: pairwise config == triplet marginal ------------
+    def lp_coupling(self, lmeta, rmeta, data):
+        n1, n2 = lmeta
+        t1, t2, t3 = rmeta
+        rows = []
+        for a in range(n1):
+            for b in range(n2):
+                if self.pair == (1, 2):
+                    idxs = [(a, b, k) for k in range(t3)]
+                elif self.pair == (1, 3):
+                    idxs = [(a, k, b) for k in range(t2)]
+                else:
+                    idxs = [(k, a, b) for k in range(t1)]
+                rcoefs = {(x * t2 + y) * t3 + z: -1.0 for (x, y, z) in idxs}
+                rows.append(({a * n2 + b: 1.0}, rcoefs, 0.0))
+        return rows
+
 
 PAIRWISE_TRIPLET_12 = PairwiseTripletMessage((1, 2))
 PAIRWISE_TRIPLET_13 = PairwiseTripletMessage((1, 3))

@@ -93,6 +93,19 @@ class _UnaryPairwiseBase(MessageType):
         r = right_primal[self._right_key()][ridx]
         return (l >= 0) & (l == r)
 
+    # -- constraint export: unary marginal == pairwise row/col marginal ----
+    def lp_coupling(self, lmeta, rmeta, data):
+        L = lmeta[0]
+        n1, n2 = rmeta
+        rows = []
+        for lab in range(L):
+            if self.side == 1:
+                rcoefs = {lab * n2 + l2: -1.0 for l2 in range(n2)}
+            else:
+                rcoefs = {l1 * n2 + lab: -1.0 for l1 in range(n1)}
+            rows.append(({lab: 1.0}, rcoefs, 0.0))
+        return rows
+
 
 class UnaryPairwiseMessage(_UnaryPairwiseBase):
     """Unary <-> dense pairwise simplex, one type per side."""

@@ -7,8 +7,7 @@ the normalized cost ``c - min(c)``, i.e. the two factors must take the same
 label, and a send shifts all relative cost onto the other side.  This is the
 canonical coupling for tree decompositions over cloned factors
 (tree_decomposition.hxx:277-585).  Each repam is an out-of-place
-``index_add``.  Not ported: the pull hooks (the pull pass is not ported)
-and the LP coupling ``lp_coupling`` (ROADMAP.md queue 1 item 9).
+``index_add``.  Not ported: the pull hooks (the pull pass is not ported).
 """
 from __future__ import annotations
 
@@ -76,6 +75,11 @@ class VectorEqualityMessage(MessageType):
         l = left_primal["x"][lidx]
         r = right_primal["x"][ridx]
         return (l >= 0) & (l == r)
+
+    # -- constraint export: the two label simplexes agree entry by entry ----
+    def lp_coupling(self, lmeta, rmeta, data):
+        assert lmeta[0] == rmeta[0]
+        return [({lab: 1.0}, {lab: -1.0}, 0.0) for lab in range(lmeta[0])]
 
 
 VECTOR_EQUALITY = VectorEqualityMessage()

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 from .config import PAD_COST, MessageSchedule
@@ -95,6 +96,33 @@ class FactorType:
     def dual_vector(self, costs: dict) -> torch.Tensor:
         """Flatten dual state to [F, D] (serialization.hxx analogue)."""
         raise NotImplementedError
+
+    # -- exact-oracle constraint export -------------------------------------
+    # Every factor is exportable to external LP/ILP solvers, as the
+    # reference's construct_constraints/load_costs/convert_primal are
+    # (LP_MP.h:104-116, factors_messages.hxx:3441-3619): each type
+    # contributes a block of [0,1] LP variables with linear equality rows;
+    # io/lp_export and io/ilp drive these hooks.  They take and return host
+    # numpy rows, never tensors.
+    def lp_vars(self, state_row: dict, data: Any):
+        """One factor's LP block from its reparametrized state row.
+
+        Returns (costs [n], rows, rhs, meta): ``rows`` are intra-factor
+        equality constraints as dicts {local var -> coef}, ``meta`` is an
+        opaque value handed back to lp_fix/lp_read and to the incident
+        messages' lp_coupling."""
+        raise NotImplementedError(
+            f"{self.name} has no LP constraint export")
+
+    def lp_fix(self, prim_row: dict, meta) -> np.ndarray:
+        """0/1 variable values of this block under fixed primal labels
+        (convert_primal direction: primal -> external variables)."""
+        raise NotImplementedError(f"{self.name} has no LP export")
+
+    def lp_read(self, values: np.ndarray, meta) -> dict:
+        """Primal labels from solved 0/1 block values (external -> primal);
+        returns {primal key -> scalar or row vector}."""
+        raise NotImplementedError(f"{self.name} has no LP export")
 
 
 class MessageType:
@@ -167,6 +195,15 @@ class MessageType:
     def repam_right(self, costs: dict, idx: torch.Tensor, delta: torch.Tensor,
                     data: dict) -> dict:
         raise NotImplementedError
+
+    # -- exact-oracle constraint export -------------------------------------
+    def lp_coupling(self, lmeta, rmeta, data: Any) -> list:
+        """Coupling equalities gluing one message's two LP blocks
+        (MessageContainer::construct_constraints analogue,
+        factors_messages.hxx:1605-1674).  Returns a list of
+        (left_coefs {lvar->coef}, right_coefs {rvar->coef}, rhs)."""
+        raise NotImplementedError(
+            f"{self.name} has no LP constraint export")
 
     # -- primal ------------------------------------------------------------
     def propagate_primal_l2r(self, left_primal: dict, right_primal: dict,

@@ -15,8 +15,11 @@ engine with the current reparametrization carried over row-wise and the
 absorbed triplets folded back in.  With ``tree_decomposition`` and
 ``tree_decomposition_begin`` it switches, after that many message-passing
 iterations, to subgradient ascent over a ``GeneralTreeDecomposition`` on
-the same device.  The exact rounding oracles are a later item of queue 1 in
-ROADMAP.md; asking for them raises ``NotImplementedError``.
+the same device.  With ``exact_rounding`` ("ilp" or "combilp") every primal
+round also runs the exact oracle on the host (``io/ilp.ilp_round`` or
+``combilp.combi_lp``, HiGHS through scipy, at most ``exact_time_limit``
+seconds per MILP), after folding absorbed triplets back into a rebuilt
+engine.
 """
 from __future__ import annotations
 
@@ -39,21 +42,26 @@ class Solver:
                  reparametrization_type: str = "shared",
                  inner_iteration: int = 5,
                  exact_rounding: "str | None" = None,
+                 exact_time_limit: "float | None" = None,
                  rounding: str = "mp",
                  tree_decomposition: "list | None" = None,
                  tree_decomposition_begin: "int | None" = None,
                  tree_layout: str = "zero_sum",
                  device="cuda", dtype: "torch.dtype | None" = None):
-        if exact_rounding is not None:
-            raise NotImplementedError(
-                "exact rounding (ilp, combilp) is queue 1 item 9 of ROADMAP.md, "
-                "not ported yet")
+        if exact_rounding not in (None, "ilp", "combilp"):
+            raise ValueError(f"exact_rounding {exact_rounding!r}: None, 'ilp' or 'combilp'")
         self.graph = FactorGraph()
         self.visitor = visitor if visitor is not None else StandardVisitor()
         self.schedule_mode = schedule_mode
         # --reparametrizationType / --innerIteration (LP_MP.h:588-594)
         self.reparametrization_type = reparametrization_type
         self.inner_iteration = inner_iteration
+        # exact rounding oracle (LP_sat / combiLP analogue): None, "ilp"
+        # (solver.hxx:529-546 SAT rounding) or "combilp" (combiLP.hxx:92-271)
+        self.exact_rounding = exact_rounding
+        # per-invocation MILP budget for the exact oracles; at the limit the
+        # best feasible incumbent is used (time-boxed SAT-rounding analogue)
+        self.exact_time_limit = exact_time_limit
         # rounding mode: "mp" = post-receive argmin; "restricted" = argmin
         # conditioned on one-sided restricted messages from fixed neighbors
         # (factors_messages.hxx:513-566)
@@ -177,6 +185,25 @@ class Solver:
             self.register_primal(prim)
         self.lower_bound_ = max(self.lower_bound_, ts["best"])
 
+    def _exact_round(self, prim) -> None:
+        """Run the exact oracle once and keep its primal if it is better."""
+        if self.aux:
+            # the exact oracles walk the full factor graph: fold the
+            # absorbed triplets back into a rebuilt engine first.  The
+            # rebuilt engine has blocks the old primal lacks, so combiLP
+            # rounds afresh on it (the JAX package hands the old primal on
+            # and fails with a KeyError on the folded-in type).
+            self.build_engine()
+            prim = None
+        if self.exact_rounding == "ilp":
+            from .io.ilp import ilp_round
+            p, _ = ilp_round(self.engine, time_limit=self.exact_time_limit)
+        else:
+            from .combilp import combi_lp
+            p, _ = combi_lp(self.engine, prim=prim, time_limit=self.exact_time_limit)
+        if p is not None:
+            self.register_primal(p)
+
     # ------------------------------------------------------------------
     def solve(self) -> float:
         if self.engine is None:
@@ -204,6 +231,8 @@ class Solver:
                 for ctor in self.constructors:
                     if hasattr(ctor, "compute_primal"):
                         self.register_primal(ctor.compute_primal(self.engine))
+                if self.exact_rounding:
+                    self._exact_round(prim)
             else:
                 self.engine.compute_pass(c.repam)
             if self.aux:

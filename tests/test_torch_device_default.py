@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from lp_mp_tpu_torch import cli
 from lp_mp_tpu_torch import (Engine, FactorGraph, GridPottsModel, MrfConstructor,
                              ShardedEngine, ShardedGridPotts, Solver, StandardVisitor, random_grid)
 
@@ -114,6 +115,25 @@ def test_sharded_engine_runs_on_cpu_shards(k):
     assert e.devices == [torch.device("cpu")] * k
     assert all(v.device.type == "cpu" for loc in e._local for blk in loc.values()
                for v in blk.values())
+
+
+UAI_PAIR = "MARKOV\n2\n2 2\n3\n1 0\n1 1\n2 0 1\n\n2\n 0.1 0.9\n\n2\n 0.5 0.5\n\n4\n 0 1\n 1 0\n"
+
+
+@pytest.mark.parametrize("command", ["mrf", "gm", "multicut"])
+def test_cli_device_defaults_to_cuda(command):
+    assert cli.parser().parse_args([command, "input"]).device == "cuda"
+    assert cli.parser().parse_args([command, "input", "--device", "cpu"]).device == "cpu"
+
+
+def test_cli_without_a_card_raises_unless_asked_for_the_cpu(no_cuda, tmp_path, capsys):
+    inp = tmp_path / "pair.uai"
+    inp.write_text(UAI_PAIR)
+    argv = ["mrf", str(inp), "--maxIter", "3", "-v", "0"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert "lower bound:" in capsys.readouterr().out
 
 
 @pytest.fixture

@@ -224,7 +224,10 @@ def test_port_imports_no_jax():
             "lp_mp_tpu_torch.factors.counting, lp_mp_tpu_torch.messages.counting, "
             "lp_mp_tpu_torch.models.tomography, lp_mp_tpu_torch.parallel.generic, "
             "lp_mp_tpu_torch.messages.vector_equality, lp_mp_tpu_torch.trees, "
-            "lp_mp_tpu_torch.trees_general, chip_smoke; "
+            "lp_mp_tpu_torch.trees_general, lp_mp_tpu_torch.io.lp_export, "
+            "lp_mp_tpu_torch.io.ilp, lp_mp_tpu_torch.combilp, lp_mp_tpu_torch.checkpoint, "
+            "lp_mp_tpu_torch.visitors_db, lp_mp_tpu_torch.cli, lp_mp_tpu_torch.__main__, "
+            "chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lp_mp_tpu')]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

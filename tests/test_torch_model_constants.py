@@ -1,7 +1,8 @@
 """The JAX package's values that ``chip_smoke.py`` holds the card's graph
-matching, tomography and tree runs against (``JAX_TOMO10X32``,
-``JAX_QAP16``, ``JAX_TREES``, ``JAX_TREE_SOLVER``), recomputed from the JAX
-package on the CPU in float32.
+matching, tomography, tree, exact-oracle and command-line runs against
+(``JAX_TOMO10X32``, ``JAX_QAP16``, ``JAX_TREES``, ``JAX_TREE_SOLVER``,
+``JAX_ORACLES``, ``JAX_CLI``), recomputed from the JAX package on the CPU
+in float32.
 
 Each case runs in a subprocess of its own: float32 without
 ``jax_enable_x64`` (which this suite's conftest turns on), no persistent
@@ -9,7 +10,13 @@ compilation cache, and the instances built by ``chip_smoke.py``'s own
 ``tomography_chains`` and ``qap_input`` (bench.py's solver_e2e
 ``tomography_10x32``, seed 10, and ``qap_16x16``, seed 9), through
 ``Solver(StandardVisitor(max_iter=MODEL_ITERS), schedule_mode="auto",
-pass_style="auto")``.
+pass_style="auto")``.  The oracles: ``mrf_grid24`` (``chip_smoke``'s
+``mrf_grid24_instance``, untightened) after ``Solver(StandardVisitor(
+max_iter=ORACLE_ITERS))``, its local polytope's size, LP value and ILP
+value.  The command line: ``cli.main`` of the JAX package on the text files
+``chip_smoke.cli_inputs`` writes, the lower bounds it prints (the mrf run
+in the oracles' subprocess; the gm run, which is qap_16x16's Solver run
+through text and takes about 20 s, marked ``slow``).
 """
 import json
 import os
@@ -59,6 +66,34 @@ if sys.argv[1] in ("chains", "chains_fw", "tree_solver"):
         out["lb"] = float(t.solve())
     print(json.dumps(out))
     sys.exit(0)
+if sys.argv[1] == "oracles":
+    from lp_mp_tpu.io.ilp import ilp_round
+    from lp_mp_tpu.io.lp_export import build_local_polytope, solve_lp_relaxation
+    un, pairs, pw = cs.mrf_grid24_instance()
+    o = Solver(visitor=StandardVisitor(max_iter=cs.ORACLE_ITERS))
+    mrf = o.add_constructor(MrfConstructor)
+    mrf.add_unary_factors(un)
+    mrf.add_pairwise_factors(pairs, pw)
+    o.solve()
+    c, rows, _, _ = build_local_polytope(o.engine)
+    out.update(n_vars=len(c), n_rows=len(rows), lp=solve_lp_relaxation(o.engine),
+               ilp=float(ilp_round(o.engine, time_limit=cs.ORACLE_ILP_LIMIT)[1]))
+if sys.argv[1] in ("oracles", "cli_gm"):
+    import contextlib, io, tempfile
+    from lp_mp_tpu.cli import main
+    with tempfile.TemporaryDirectory() as d:
+        files = cs.cli_inputs(d)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if sys.argv[1] == "oracles":
+                main(["mrf", files["mrf"], "--maxIter", str(cs.CLI_MRF_ITERS), "-v", "0"])
+            else:
+                main(["gm", files["gm"], "--construction", "left", "--maxIter",
+                      str(cs.CLI_GM_ITERS), "-v", "0"])
+    key = "mrf_lb" if sys.argv[1] == "oracles" else "gm_lb"
+    out[key] = cs.printed_bounds(buf.getvalue())[0]
+    print(json.dumps(out))
+    sys.exit(0)
 if sys.argv[1] == "tomography_10x32":
     cs.tomography_chains(s.add_constructor(DiscreteTomographyConstructor), 10, 32, 3, seed=10)
     s.solve()
@@ -93,6 +128,22 @@ def test_chip_smoke_constants_are_the_jax_packages(case, want):
     if "rel_gap" in want:
         assert got["rel_gap"] == pytest.approx(want["rel_gap"], abs=REL)
         assert got["matching"] == want["matching"]
+
+
+def test_chip_smoke_oracle_constants_are_the_jax_packages():
+    """The oracles and the mrf command line, in one subprocess."""
+    got = jax_float32("oracles")
+    for k, v in chip_smoke.JAX_ORACLES.items():
+        if isinstance(v, int):
+            assert got[k] == v, (k, got[k], v)
+        else:
+            assert got[k] == pytest.approx(v, rel=REL), (k, got[k], v)
+    assert got["mrf_lb"] == pytest.approx(chip_smoke.JAX_CLI["mrf_lb"], rel=REL)
+
+
+@pytest.mark.slow
+def test_chip_smoke_gm_cli_constant_is_the_jax_packages():
+    assert jax_float32("cli_gm")["gm_lb"] == pytest.approx(chip_smoke.JAX_CLI["gm_lb"], rel=REL)
 
 
 @pytest.mark.parametrize("case, want", [

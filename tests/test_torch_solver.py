@@ -237,14 +237,18 @@ def test_native_library_has_its_own_cache(monkeypatch, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# not ported yet: each names its item of queue 1 in ROADMAP.md
+# features that were not ported at first, and how they behave now
 # ---------------------------------------------------------------------------
 def test_unported_features_raise():
     # trees are ported: the switch is kept until the solve reaches it
     s = Solver(tree_decomposition=[[0]], tree_decomposition_begin=3, device="cpu")
     assert s.tree_decomposition == [[0]] and s.tree_decomposition_begin == 3
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Solver(exact_rounding="ilp", device="cpu")
+    # exact rounding is ported: the oracle is kept until a primal round; an
+    # unknown oracle raises
+    s = Solver(exact_rounding="ilp", exact_time_limit=5.0, device="cpu")
+    assert s.exact_rounding == "ilp" and s.exact_time_limit == 5.0
+    with pytest.raises(ValueError, match="bogus"):
+        Solver(exact_rounding="bogus", device="cpu")
     # tightening is ported: on the UAI chain (no triangle, no cycle) it adds nothing
     s = Solver(device="cpu")
     mrf = s.add_constructor(MrfConstructor)

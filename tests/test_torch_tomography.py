@@ -453,6 +453,44 @@ def test_tomography_10x32_solver_matches_jax():
                                   dj.labeling(sj.engine, sj.best_primal))
 
 
+def test_projections_of_two_lengths_between_other_factors():
+    """Rays of 6, 4 and 2 pixels, each projection added right after its
+    pixels, so the chain factors come in three item chunks.  The port
+    builds them as one block (padded variables forced to label 0): its
+    bound is finite and equals the bound with the projections added in a
+    row, and both give one ILP optimum.  The JAX package builds each chunk
+    alone and pads the short chains' variables with PAD_COST: its bound is
+    6e20 (ROADMAP.md queue 3)."""
+    from lp_mp_tpu_torch import ilp_round
+
+    je, pe = twin_engines(3, 6, 3, 5, sizes=[6, 4, 2])
+    assert je.lower_bound() == pytest.approx(6e20, rel=1e-12)
+    g = FactorGraph()
+    rng = np.random.default_rng(5)
+    dt, v, rays = DiscreteTomographyConstructor(g), 0, []
+    for n in (6, 4, 2):
+        for q in range(n):
+            dt.add_unary_factor(rng.normal(size=3))
+            if q:
+                dt.add_pairwise_factor(v - 1, v, rng.normal(size=(3, 3)) * 0.3)
+            v += 1
+        rays.append((range(v - n, v), 0.05 * np.abs(np.arange(2 * n + 1)
+                                                     - int(rng.integers(0, 2 * n)))))
+    for vars_, pc in rays:
+        dt.add_projection(vars_, pc)
+    ref = Engine(g, device="cpu")
+    assert abs(pe.lower_bound() - ref.lower_bound()) <= 1e-12
+    chain = pe.state["counting_chain"]
+    assert chain["lam"].shape == (3, 6, 3)
+    assert (chain["lam"][2, 2:, 0] == 0).all() and torch.isinf(chain["lam"][2, 2:, 1:]).all()
+    _, opt = ilp_round(pe)
+    _, opt_ref = ilp_round(ref)
+    assert abs(opt - opt_ref) <= 1e-9
+    for _ in range(10):
+        pe.compute_pass("anisotropic")
+    assert np.isfinite(pe.lower_bound()) and pe.lower_bound() <= opt + 1e-9
+
+
 def test_counting_state_carried_from_jax():
     """A JAX engine's state after 3 passes, carried into the port (int32
     nv/nl become int64, +inf lanes stay), then 3 more passes on each."""
