@@ -90,15 +90,30 @@ text, the mrf labels' cost on the host equal to the printed ub within
 1e-4, and the tightened multicut run's sqlite table holding one row per
 visited iteration, its last lowerBound the printed lb.
 
+Every phase runs on the default captured path (use_jit=True: CUDA graphs,
+lp_mp_tpu_torch/capture.py).  The kernel checks end with each kernel
+replayed from a CUDA graph against its plain version; the launch counts of
+the main paths are the schedule's graph replays plus one warm-up run per
+captured graph.  Last, jit: runs every captured path (the chain, the engine
+grid, the multicut with its triplets, qap_32x32, tomography_100x64, the
+4-shard sharded engine on the grid and the multicut, the 304x304 tree
+solve, ShardedGridPotts.run_fast(20) at 1 and 4 shards and
+GridPottsModel.run_fast(20) with both kernels) with use_jit=False and True
+in turns: ms per call, host enqueue, idle share, kernels, graphs, capture
+seconds and pool MB, and the captured state within 1e-5 (1 + max|x|) and
+its bound within 1e-6 relative (multicut 1e-5) of the eager one after 10
+calls.
+
 The last lines are JSON records of the engine path, of tightening, of the
 two models, of the sharded engine, the trees and the tree Solver, of the
-checkpoint, the oracles and the command line, a JSON record of the kernels,
-and {"ok": true, "device": {...}}.  Any failure
+checkpoint, the oracles, the command line and the jit phase, a JSON record
+of the kernels, and {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at
 once.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -121,9 +136,10 @@ from lp_mp_tpu_torch import (ChainDecomposition, Direction, DiscreteTomographyCo
                              TreeSpec, build_local_polytope, combi_lp, ilp_round, load_checkpoint,
                              native, random_grid, restore, save_checkpoint, snapshot,
                              solve_lp_relaxation)
+from lp_mp_tpu_torch.capture import flatten
 from lp_mp_tpu_torch.convert import host_array
 from lp_mp_tpu_torch.kernel_check import (RTOL, check_grid_kernels, check_phase_v1,
-                                          check_sharded_grid_kernels)
+                                          check_replays, check_sharded_grid_kernels)
 from lp_mp_tpu_torch.models.grid_potts import grid_potts_edges
 from lp_mp_tpu_torch.ops import _cuda_build
 from lp_mp_tpu_torch.ops.grid_kernels import (launch_counts, phase_update, phase_update_ref,
@@ -195,6 +211,8 @@ JAX_ORACLES = {"lp": -150.4090523654313, "ilp": -133.898193359375, "n_vars": 980
                "n_rows": 11386}
 # checkpoint: passes run between the save and the load
 CHECKPOINT_PASSES = 5
+# jit: calls of each path, eager and captured from one state, before their states are compared
+JIT_PASSES = 10
 # command line: mrf_grid24 as UAI text, qap_16x16 in the Torresani format and the
 # multicut_grid40 edges, through python -m lp_mp_tpu_torch; the JAX package's cli.main on
 # the same text on the CPU in float32 (tests/test_torch_model_constants.py recomputes them).
@@ -281,6 +299,17 @@ def phase_build() -> None:
     _cuda_build.library()
 
 
+def with_warmups(schedule: dict, graphs) -> dict:
+    """The launches a schedule of graph replays implies, plus the one
+    warm-up run of each graph that ``graphs`` (a ``capture.Graphs``)
+    captured: a warm-up launches the kernels that its capture records."""
+    out = dict(schedule)
+    for rec in graphs.records:
+        for k, v in rec.launches.items():
+            out[k] += v
+    return out
+
+
 def phase_main_path() -> dict:
     """The dense main path.  Returns its launch counts, its state after the
     1500 iterations (before rounding), its bound and its rounded primal."""
@@ -297,8 +326,9 @@ def phase_main_path() -> dict:
         prev = lb
     counts = launch_counts()
     per_call = {"phase_update": 1, "round_update": CHUNK_ITERS // 2 + CHUNK_ITERS % 2}
-    expect = {k: CHUNKS * per_call.get(k, 0) for k in counts}
-    print(f"main: launches {counts}, schedule implies {expect}")
+    expect = with_warmups({k: CHUNKS * per_call.get(k, 0) for k in counts}, m.jit)
+    print(f"main: launches {counts}, schedule implies {expect} ({CHUNKS} replays of the "
+          f"captured run_fast({CHUNK_ITERS}) and its warm-up)")
     if counts != expect:
         fail(f"launch counts {counts} differ from the schedule's {expect}")
     lb_cuda = prev
@@ -357,7 +387,7 @@ def phase_sharded_path(dense: dict) -> dict:
         counts = launch_counts()
         per_call = {"phase_update_sharded": 1,
                     "round_update_sharded": CHUNK_ITERS // 2 + CHUNK_ITERS % 2}
-        expect = {k: n * CHUNKS * per_call.get(k, 0) for k in counts}
+        expect = with_warmups({k: n * CHUNKS * per_call.get(k, 0) for k in counts}, sm.jit)
         print(f"sharded: {n} shards (Hl={sm.layout.Hl}): bound after {CHUNKS} x "
               f"run_fast({CHUNK_ITERS}) {prev:.6f}, rel diff to JAX {rel(prev, JAX_TARGET_LB):.3e} "
               f"(limit 1e-4), to the dense kernel path {rel(prev, dense['lb']):.3e}")
@@ -773,6 +803,7 @@ def phase_engine_grid() -> tuple:
     counts = launch_counts()
     expect = dict.fromkeys(counts, 0)
     expect.update(phase_update=1, round_update=ENGINE_GRID_PASSES // 2)
+    expect = with_warmups(expect, m.jit)
     if counts != expect:
         fail(f"GridPottsModel kernel path launches {counts} differ from the schedule's {expect}")
     mi = GridPottsModel(u, hc, vc, device="cuda", dtype=torch.float32)
@@ -918,9 +949,14 @@ def solver_run(tag: str, s: Solver, ctor) -> dict:
     gap = (ub - lb) / max(1.0, abs(ub))
     n_trip = len(getattr(ctor, "triplets", ()))
     out = {"lb": lb, "ub": ub, "rel_gap": gap, "s": sec, "n_engine_builds": s.n_engine_builds,
-           "aux_n": s.aux.n, "n_triplets": n_trip}
+           "aux_n": s.aux.n, "n_triplets": n_trip, "captures": s.n_captures,
+           "capture_s": s.capture_seconds}
+    recs = s.engine.jit.records
     print(f"{tag}: Solver.solve() in {sec:.2f} s: lb {lb:.6f}, ub {ub:.6f}, rel gap {gap:.3e}, "
-          f"{s.n_engine_builds} engine builds, aux.n {s.aux.n}, {n_trip} triplets")
+          f"{s.n_engine_builds} engine builds, aux.n {s.aux.n}, {n_trip} triplets; "
+          f"{s.n_captures} CUDA graphs captured in {s.capture_seconds:.2f} s (warm-up included; "
+          f"the last engine's {len(recs)}: warm-up {sum(r.warmup_s for r in recs):.2f} s, "
+          f"capture {sum(r.capture_s for r in recs):.2f} s)")
     return out
 
 
@@ -1142,11 +1178,12 @@ def cut_summary(sh: ShardedEngine) -> dict:
             "by_type": stats}
 
 
-def phase_sharded_engine(card: str, g_grid: FactorGraph, g_mc: FactorGraph) -> dict:
+def phase_sharded_engine(card: str, g_grid: FactorGraph, g_mc: FactorGraph) -> tuple:
     """ShardedEngine on the 1000x1000 grid at 1 and 4 shards on cuda:0 and
     on the 149101-edge multicut with its 500 triplets at 4 shards, each
     held against a fresh unsharded Engine after the same passes.  Neither
-    launches a hand-written kernel."""
+    launches a hand-written kernel.  Returns the record and the 4-shard grid
+    engine."""
     out = {}
     ref, ref_build = timed_engine(g_grid, schedule_mode="coloring")
     reset_launch_counts()
@@ -1190,7 +1227,7 @@ def phase_sharded_engine(card: str, g_grid: FactorGraph, g_mc: FactorGraph) -> d
                                 idle_share=prof["idle_share"], busy_ms=prof["busy_ms"])
     out["grid_unsharded"] = {"pass_ms": t["unsharded"], "host_enqueue_ms": host["unsharded"],
                              "build_s": ref_build}
-    sh = shards[SHARD_RUNS[-1]]
+    sh = grid_sh = shards[SHARD_RUNS[-1]]
     lb = sh.lower_bound()
     t0 = time.perf_counter()
     prim = sh.compute_pass_and_primal("damped_uniform", Direction.forward)
@@ -1202,7 +1239,7 @@ def phase_sharded_engine(card: str, g_grid: FactorGraph, g_mc: FactorGraph) -> d
     if not (ok and np.isfinite(ub) and ub >= lb - 1e-4 * abs(lb)):
         fail(f"grid sharded primal: consistent {ok}, ub {ub}, lb {lb}")
     out["grid_primal"] = {"ub": ub, "lb": lb, "consistent": ok, "s": primal_s}
-    del ref, shards, sh, prim
+    del ref, shards, prim
 
     ref, ref_build = timed_engine(g_mc, schedule_mode="coloring")
     n = SHARD_RUNS[-1]
@@ -1230,7 +1267,7 @@ def phase_sharded_engine(card: str, g_grid: FactorGraph, g_mc: FactorGraph) -> d
     out[f"multicut_{n}"] = {"build_s": build_s, "lb": lb, "lb_unsharded": lb_ref,
                             "pass_ms": t[f"{n} shards"], "unsharded_pass_ms": t["unsharded"],
                             "host_enqueue_ms": host, "idle_share": prof["idle_share"], **cut}
-    return out
+    return out, grid_sh
 
 
 def chains_digest(chains) -> str:
@@ -1252,7 +1289,8 @@ def phase_trees(card: str) -> tuple:
     """ChainDecomposition of mrf_304x304 on the card: the cover against
     the JAX package's, subgradient ascent and FW-MAP against its float32 CPU
     bounds, the majority-vote labelling, the write-back into an Engine.
-    Returns the record and the cover's chains."""
+    Returns the record, the decomposition and subgradient ascent's
+    multipliers."""
     g, mrf, (un, pairs, pw) = mrf_304()
     t = time.perf_counter()
     dec = ChainDecomposition.from_mrf(mrf, device="cuda", dtype=torch.float32)
@@ -1306,7 +1344,7 @@ def phase_trees(card: str) -> tuple:
     return {"cover_s": cover_s, "T": T, "V": V, "digest": digest, "sg": sg, "sg_s": sg_s,
             "fw": fw, "fw_s": fw_s, "labels_cost": cost, "write_back_lb": lb_e,
             "solve_ms": solve_ms, "host_enqueue_ms": host, "idle_share": prof["idle_share"],
-            "busy_ms": prof["busy_ms"]}, dec.chains
+            "busy_ms": prof["busy_ms"]}, dec, lam
 
 
 def tree_solver(chains, device="cuda", dtype=torch.float32) -> Solver:
@@ -1408,6 +1446,135 @@ def phase_oracles(card: str) -> dict:
           f"(limit 1e-5), lb <= ub: {r['lb'] <= r['ub']}")
     if not (rel(r["ub"], ilp) <= 1e-5 and r["lb"] <= r["ub"]):
         fail(f"oracles: Solver(exact_rounding='ilp') lb {r['lb']}, ub {r['ub']}, ILP {ilp}")
+    return out
+
+
+def tree_diff(a, b) -> tuple:
+    """(max |a - b| over the float leaves of two trees of tensors, 1 + max |b|)."""
+    la, sa = flatten(a)
+    lb, sb = flatten(b)
+    if sa != sb:
+        fail("the captured and the eager path hold states of another structure")
+    err, scale = 0.0, 1.0
+    for x, y in zip(la, lb):
+        if x.is_floating_point() and x.numel():
+            err = max(err, float((x - y).abs().max()))
+            scale = max(scale, 1.0 + float(y.abs().max()))
+    return err, scale
+
+
+def jit_path(tag: str, eager, graphed, step, read, bound, stats, card: str,
+             bound_tol: float = 1e-6) -> dict:
+    """One path of the jit phase: ``eager`` (use_jit=False) and ``graphed``
+    (use_jit=True) start from the same state; after JIT_PASSES calls of
+    ``step`` each, the captured state (``read``) must lie within
+    1e-5 (1 + max|x|) of the eager one and its ``bound`` within
+    ``bound_tol`` relative.  Then both are timed in turns (CUDA events,
+    median of 3), their host enqueue measured and one call profiled."""
+    for _ in range(JIT_PASSES):
+        step(eager)
+        step(graphed)
+    err, scale = tree_diff(read(graphed), read(eager))
+    b_jit, b_eager = bound(graphed), bound(eager)
+    if not (err <= 1e-5 * scale and rel(b_jit, b_eager) <= bound_tol):
+        fail(f"jit: {tag}: the captured path differs from the eager one after {JIT_PASSES} "
+             f"calls: state {err:.3e} (limit {1e-5 * scale:.3e}), bound {b_jit} against "
+             f"{b_eager} (limit {bound_tol} relative)")
+    fns = {"eager": lambda: step(eager), "captured": lambda: step(graphed)}
+    t = in_turns(fns, reps=3)
+    host = {k: host_ms(fn, reps=3) for k, fn in fns.items()}
+    prof = {k: profile_pass(fn) for k, fn in fns.items()}
+    st = stats(graphed)
+    print(f"jit: {tag}: ms per call eager {t['eager']:.3f} / captured {t['captured']:.3f} "
+          f"({t['eager'] / t['captured']:.2f}x); host enqueue {host['eager']:.3f} / "
+          f"{host['captured']:.3f} ms; idle share {prof['eager']['idle_share']:.3f} / "
+          f"{prof['captured']['idle_share']:.3f}; device busy {prof['eager']['busy_ms']:.3f} / "
+          f"{prof['captured']['busy_ms']:.3f} ms in {prof['eager']['kernels']} / "
+          f"{prof['captured']['kernels']} kernels; {st['graphs']} graphs captured in "
+          f"{st['capture_s']:.2f} s (warm-up included), pool {st['pool_mb']:.1f} MB; after "
+          f"{JIT_PASSES} calls state diff {err:.3e} (limit {1e-5 * scale:.3e}), bound "
+          f"{b_jit:.6f} vs {b_eager:.6f} (rel {rel(b_jit, b_eager):.3e}, limit {bound_tol}) "
+          f"on {card}")
+    return {"eager_ms": t["eager"], "captured_ms": t["captured"],
+            "eager_host_ms": host["eager"], "captured_host_ms": host["captured"],
+            "eager_idle_share": prof["eager"]["idle_share"],
+            "captured_idle_share": prof["captured"]["idle_share"],
+            "eager_busy_ms": prof["eager"]["busy_ms"], "captured_busy_ms": prof["captured"]["busy_ms"],
+            "eager_kernels": prof["eager"]["kernels"], "captured_kernels": prof["captured"]["kernels"],
+            "graphs": st["graphs"], "capture_s": st["capture_s"], "pool_mb": st["pool_mb"],
+            "state_diff": err, "state_limit": 1e-5 * scale, "bound_rel_diff": rel(b_jit, b_eager)}
+
+
+def phase_jit(card: str, ec: Engine, eg: Engine, g_mc: FactorGraph, sh_grid: ShardedEngine,
+              dec: ChainDecomposition, lam: torch.Tensor) -> dict:
+    """use_jit=False against use_jit=True on every path the port captures,
+    at the sizes of the phases above; the captured objects of those phases
+    are reused where a build takes seconds, their eager twins given the
+    same state."""
+    out = {}
+    f32 = dict(device="cuda", dtype=torch.float32)
+
+    def engine_pair(graph, graphed=None, **kw):
+        eager = Engine(graph, use_jit=False, **f32, **kw)
+        if graphed is None:
+            graphed = Engine(graph, **f32, **kw)
+        else:
+            eager.set_state(graphed.get_state())
+        return eager, graphed
+
+    def engine_path(tag, pair, bound_tol=1e-6):
+        out[tag] = jit_path(tag, *pair, lambda e: e.compute_pass("anisotropic"),
+                            lambda e: e.state, lambda e: e.lower_bound(),
+                            lambda e: e.jit.stats(), card, bound_tol)
+
+    engine_path("chain 100k", engine_pair(ec.graph, ec, schedule_mode="auto"))
+    engine_path(f"engine grid {H}x{W}", engine_pair(eg.graph, eg, schedule_mode="coloring"))
+    engine_path("multicut 149k + 500 triplets", engine_pair(g_mc, schedule_mode="coloring"),
+                bound_tol=1e-5)
+    g = FactorGraph()
+    GraphMatchingConstructor(g, construction="left").construct(qap_input(32, 3000, seed=4))
+    engine_path("qap_32x32", engine_pair(g, schedule_mode="auto"))
+    g = FactorGraph()
+    tomography_chains(DiscreteTomographyConstructor(g), 100, 64, 3, seed=5)
+    engine_path("tomography_100x64", engine_pair(g, schedule_mode="auto"))
+    del g
+
+    n = SHARD_RUNS[-1]
+
+    def sharded_path(tag, eager, graphed, bound_tol):
+        out[tag] = jit_path(tag, eager, graphed, lambda e: e.compute_pass("anisotropic"),
+                            lambda e: e.state, lambda e: e.lower_bound(),
+                            lambda e: e.jit.stats(), card, bound_tol)
+
+    eager = ShardedEngine(eg.graph, devices=["cuda:0"] * n, dtype=torch.float32, use_jit=False)
+    eager.set_state(sh_grid.state)
+    sharded_path(f"sharded engine grid, {n} shards", eager, sh_grid, 1e-6)
+    eager, graphed = (ShardedEngine(g_mc, devices=["cuda:0"] * n, dtype=torch.float32,
+                                    use_jit=j) for j in (False, True))
+    sharded_path(f"sharded engine multicut, {n} shards", eager, graphed, 1e-5)
+    del eager, graphed
+
+    out["chain decomposition solve"] = jit_path(
+        f"chain decomposition solve {TREE_SIDE}x{TREE_SIDE}", dataclasses.replace(dec, use_jit=False),
+        dec, lambda d: d.solve(lam), lambda d: d.solve(lam)[0],
+        lambda d: float(torch.sum(d.solve(lam)[0], dtype=torch.float64)),
+        lambda d: d.jit.stats(), card)
+
+    u, hc, vc = random_grid(H, W, L, seed=SEED)
+    n_fast = 20
+    for k in SHARD_RUNS:
+        eager, graphed = (ShardedGridPotts(u, hc, vc, devices=["cuda:0"] * k,
+                                           dtype=torch.float32, use_jit=j) for j in (False, True))
+        out[f"sharded grid {k} shards"] = jit_path(
+            f"ShardedGridPotts.run_fast({n_fast}), {k} shards", eager, graphed,
+            lambda m: m.run_fast(n_fast), lambda m: m.windows, lambda m: m.lower_bound(),
+            lambda m: m.jit.stats(), card)
+    for kernel in ("torch", "cuda"):
+        eager, graphed = (GridPottsModel(u, hc, vc, use_jit=j, **f32) for j in (False, True))
+        out[f"grid model {kernel}"] = jit_path(
+            f"GridPottsModel.run_fast({n_fast}, kernel={kernel!r})", eager, graphed,
+            lambda m: m.run_fast(n_fast, kernel=kernel), lambda m: m.state,
+            lambda m: m.lower_bound(), lambda m: m.jit.stats(), card)
     return out
 
 
@@ -1575,6 +1742,10 @@ def main() -> None:
     worst["phase_update_v1"] = check_phase_v1("cuda", log=print)
     worst.update(check_sharded_grid_kernels("cuda", log=print))
     print(f"check: all v1 and sharded launches within 1e-5*(1+max|x|); max abs err {worst}")
+    for k, err in check_replays("cuda", log=print).items():
+        worst[k] = max(worst[k], err)
+    print(f"check: every kernel replayed in a CUDA graph within 1e-5*(1+max|x|); max abs err "
+          f"{worst}")
     dense = phase_main_path()
     counts = dict(dense["counts"])
     sharded = phase_sharded_path(dense)
@@ -1597,20 +1768,24 @@ def main() -> None:
     models["phase_s"] = time.perf_counter() - t1
     print(f"models: graph matching and tomography phase {models['phase_s']:.1f} s")
     t1 = time.perf_counter()
-    sharded_engine = {**phase_sharded_engine(card, g_grid, g_mc), "card": card}
-    sharded_engine["phase_s"] = time.perf_counter() - t1
+    sharded_engine, sh_grid = phase_sharded_engine(card, g_grid, g_mc)
+    sharded_engine.update(card=card, phase_s=time.perf_counter() - t1)
     t1 = time.perf_counter()
     checkpoint = {**phase_checkpoint(card, eg), "card": card}
     checkpoint["phase_s"] = time.perf_counter() - t1
-    del g_grid, g_mc, eg, ec
     t1 = time.perf_counter()
-    trees, chains = phase_trees(card)
+    trees, dec, lam = phase_trees(card)
     trees.update(card=card, phase_s=time.perf_counter() - t1)
     t1 = time.perf_counter()
-    tree_solver_rec = {**phase_tree_solver(card, chains), "card": card}
+    tree_solver_rec = {**phase_tree_solver(card, dec.chains), "card": card}
     tree_solver_rec["phase_s"] = time.perf_counter() - t1
     print(f"sharded_engine, trees, tree_solver: phases {sharded_engine['phase_s']:.1f}, "
           f"{trees['phase_s']:.1f}, {tree_solver_rec['phase_s']:.1f} s")
+    t1 = time.perf_counter()
+    jit = phase_jit(card, ec, eg, g_mc, sh_grid, dec, lam)
+    jit.update(card=card, phase_s=time.perf_counter() - t1)
+    print(f"jit: phase {jit['phase_s']:.1f} s")
+    del g_grid, g_mc, eg, ec, sh_grid, dec
     t1 = time.perf_counter()
     oracles = {**phase_oracles(card), "card": card}
     oracles["phase_s"] = time.perf_counter() - t1
@@ -1629,6 +1804,7 @@ def main() -> None:
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"oracles": oracles}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"jit": jit}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

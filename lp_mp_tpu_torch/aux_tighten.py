@@ -27,12 +27,23 @@ shapes and carries across through ``convert.aux_state_{from,to}_numpy``.
 Row indices are int64 (the index type of ``index_add``); every scatter
 into the pairwise or edge block goes through the messages' ``repam_left``,
 an out-of-place ``index_add``, because triplets share pairwise rows.
+
+With ``use_jit`` (the default, as in the JAX package) the update, the bound
+and the primal evaluation run through ``capture.Graphs`` on the engine's
+device: captured once per capacity as CUDA graphs on the card, direct calls
+with the same buffer logic on the CPU.  The absorbed state (``c``,
+``lidx``, ``active``, ``w_recv``) then lives in the graphs' buffers, which
+``_sync`` writes in place; growing the capacity or resetting the pass drops
+the graphs.  The sender block arrives from the engine and goes back to it
+as this pass's buffer, which the engine's next captured pass copies into its
+own.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .capture import Graphs
 from .config import PAD_COST
 from .factors.multicut import MULTICUT_EDGE, MULTICUT_TRIPLET
 from .factors.simplex import PAIRWISE_SIMPLEX, TERNARY_SIMPLEX
@@ -86,7 +97,8 @@ def _recv_weights(lidx_host, cap, dtype, device):
 
 def _triplet_primal_cost(ftype, slots, c, lidx, active, sender_prim, check):
     """Cost of the absorbed triplets under a primal propagated from their
-    senders; +inf if ``check`` and an active triplet is inconsistent."""
+    senders, as a float64 device scalar; +inf if ``check`` and an active
+    triplet is inconsistent."""
     tp = ftype.init_primal({"c": c})
     ridx = torch.arange(c.shape[0], device=c.device)
     for s, mt in enumerate(slots):
@@ -98,7 +110,12 @@ def _triplet_primal_cost(ftype, slots, c, lidx, active, sender_prim, check):
     if check:
         for s, mt in enumerate(slots):
             ok = ok & torch.all(mt.consistent(sender_prim, tp, lidx[s], ridx, {}) | ~act)
-    return float(torch.where(ok, total, torch.full_like(total, float("inf"))))
+    return torch.where(ok, total, torch.full_like(total, float("inf")))
+
+
+def _bound(c, active):
+    lb = torch.clamp(torch.amin(c, dim=tuple(range(1, c.ndim))), max=0.0)
+    return torch.sum(lb * active, dtype=torch.float64)
 
 
 class _AuxPass:
@@ -110,7 +127,9 @@ class _AuxPass:
     slots = ()
     _fill = 0.0         # duals of rows not yet active
 
-    def __init__(self):
+    def __init__(self, use_jit: bool = True):
+        self.use_jit = use_jit
+        self._jit = None            # Graphs on the engine's device, made at first use
         self.cap = 0
         self.n = 0
         self.c = None               # [cap, ...] triplet duals
@@ -144,7 +163,31 @@ class _AuxPass:
         bucket's fill)."""
         return None
 
+    def _primal_cost(self, c, lidx, active, sender_prim):
+        raise NotImplementedError
+
+    def _graphs(self) -> None:
+        """Make the captured update, bound and evaluation on first use, on
+        the device of the engine the pass absorbed from."""
+        if self._jit is not None:
+            return
+        jit = self._jit = Graphs(self._device, enabled=self.use_jit,
+                                 name=f"aux {self.ftype.name}")
+        slots = self.slots
+
+        def update(pw_c, c, lidx, active, w_recv):
+            return (*_cluster_update(slots, pw_c, c, lidx, active, w_recv),
+                    lidx, active, w_recv, None)
+        self._update_fn = jit.jit(update, "cluster update", donate=(0, 1, 2, 3, 4))
+        self._bound_fn = jit.jit(_bound, "lower bound")
+        self._cost_fn = jit.jit(self._primal_cost, "evaluate_primal")
+
+    def graph_stats(self) -> dict:
+        return self._jit.stats() if self._jit is not None else {"captures": 0, "capture_s": 0.0}
+
     def _grow(self, new_cap: int) -> None:
+        if self._jit is not None:
+            self._jit.reset()   # every shape changes: the graphs of the old ones go
         kw = dict(device=self._device, dtype=self._dtype)
         c = torch.full((new_cap,) + self._row_shape(), self._fill, **kw)
         lidx = torch.zeros((3, new_cap), dtype=torch.int64, device=self._device)
@@ -179,19 +222,31 @@ class _AuxPass:
         if not self.n:
             return
         self._sync()
+        self._graphs()
         blk = engine.state[self.sender.name]
-        new_c, self.c = _cluster_update(self.slots, blk["c"], self.c, self.lidx,
-                                        self.active, self.w_recv)
+        new_c, self.c, self.lidx, self.active, self.w_recv, _ = self._update_fn(
+            blk["c"], self.c, self.lidx, self.active, self.w_recv)
         engine.state[self.sender.name] = {**blk, "c": new_c}
 
     def lower_bound(self) -> float:
         if not self.n:
             return 0.0
         self._sync()
-        lb = torch.clamp(torch.amin(self.c, dim=tuple(range(1, self.c.ndim))), max=0.0)
-        return float(torch.sum(lb * self.active, dtype=torch.float64))
+        self._graphs()
+        return float(self._bound_fn(self.c, self.active))
+
+    def evaluate_primal(self, engine, prim) -> float:
+        """The absorbed triplets' cost under a primal propagated from the
+        sender labels, +inf where a check fails (``_primal_cost``)."""
+        if not self.n:
+            return 0.0
+        self._sync()
+        self._graphs()
+        return float(self._cost_fn(self.c, self.lidx, self.active, prim[self.sender.name]))
 
     def _reset(self) -> None:
+        if self._jit is not None:
+            self._jit.reset()
         self.cap = self.n = 0
         self.c = self.lidx = self.active = self.w_recv = None
         self.fids = []
@@ -229,8 +284,8 @@ class AuxTripletPass(_AuxPass):
     slots = _SLOTS
     _fill = PAD_COST
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, use_jit: bool = True):
+        super().__init__(use_jit)
         self._dims = None
 
     def add(self, engine, fid: int, data: np.ndarray,
@@ -260,14 +315,11 @@ class AuxTripletPass(_AuxPass):
         super()._reset()
         self._dims = None
 
-    def evaluate_primal(self, engine, prim) -> float:
-        """Triplet primal by propagation from the pairwise labels; returns
-        the triplets' cost, +inf if any active triplet is inconsistent."""
-        if not self.n:
-            return 0.0
-        self._sync()
-        return _triplet_primal_cost(TERNARY_SIMPLEX, _SLOTS, self.c, self.lidx, self.active,
-                                    prim[PAIRWISE_SIMPLEX.name], check=True)
+    def _primal_cost(self, c, lidx, active, sender_prim):
+        """Triplet primal by propagation from the pairwise labels: the
+        triplets' cost, +inf if any active triplet is inconsistent."""
+        return _triplet_primal_cost(TERNARY_SIMPLEX, _SLOTS, c, lidx, active, sender_prim,
+                                    check=True)
 
 
 def absorbable(graph, engine, n0: int, m0: int) -> "list | None":
@@ -317,14 +369,11 @@ class AuxMulticutTripletPass(_AuxPass):
     def _row_shape(self):
         return (4,)
 
-    def evaluate_primal(self, engine, prim) -> float:
+    def _primal_cost(self, c, lidx, active, sender_prim):
         """Propagated bits always match the edges, so consistency holds by
         construction; masked inactive rows contribute zero."""
-        if not self.n:
-            return 0.0
-        self._sync()
-        return _triplet_primal_cost(MULTICUT_TRIPLET, _MC_SLOTS, self.c, self.lidx,
-                                    self.active, prim[MULTICUT_EDGE.name], check=False)
+        return _triplet_primal_cost(MULTICUT_TRIPLET, _MC_SLOTS, c, lidx, active, sender_prim,
+                                    check=False)
 
 
 def absorbable_multicut(graph, engine, n0: int, m0: int) -> "list | None":
@@ -360,9 +409,9 @@ class AuxPasses:
     ternary triplets or multicut triplets), and fans the per-iteration
     run/bound/primal hooks to every active pass."""
 
-    def __init__(self):
-        self.mrf = AuxTripletPass()
-        self.mc = AuxMulticutTripletPass()
+    def __init__(self, use_jit: bool = True):
+        self.mrf = AuxTripletPass(use_jit)
+        self.mc = AuxMulticutTripletPass(use_jit)
 
     def __bool__(self):
         return bool(self.mrf) or bool(self.mc)
@@ -399,3 +448,9 @@ class AuxPasses:
     def fold_into(self, engine) -> None:
         self.mrf.fold_into(engine)
         self.mc.fold_into(engine)
+
+    def graph_stats(self) -> dict:
+        """Captures and capture seconds of both passes' graphs."""
+        a, b = self.mrf.graph_stats(), self.mc.graph_stats()
+        return {"captures": a["captures"] + b["captures"],
+                "capture_s": a["capture_s"] + b["capture_s"]}

@@ -88,6 +88,8 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "cp_async.cuh"
 
 namespace {
@@ -476,15 +478,34 @@ cudaError_t launch_phase(const Grid& g, int recv_color, int send_color, float le
   return cudaGetLastError();
 }
 
+// Devices whose round-kernel attributes are remembered below; a device of a
+// higher ordinal sets them at every launch.
+constexpr int kMaxDevices = 64;
+
+// The kernel's attributes are set per device at the first launch that needs
+// more dynamic shared memory than any before, and remembered: a launch under
+// CUDA stream capture (a graph of the port's capture.py, set up by an eager
+// warm-up launch) then makes no runtime call but the launch itself.
 template <int NR, bool kSharded>
 cudaError_t launch_round(const Grid& g, const RoundTile& t, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)t.smem);
+  static std::atomic<long long> smem_set[kMaxDevices];   // zero before the first launch
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  long long have = known ? smem_set[dev].load() : 0;
+  if (have < (long long)t.smem) {
+    err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)t.smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    while (known && have < (long long)t.smem &&
+           !smem_set[dev].compare_exchange_weak(have, (long long)t.smem)) {
+    }
+  }
   const dim3 grid((g.W + t.tc - 1) / t.tc, (g.n + t.tr - 1) / t.tr);
   grid_round_kernel<NR, kSharded><<<grid, dim3(t.hw, t.rb), t.smem, stream>>>(g, t);
   return cudaGetLastError();

@@ -15,20 +15,30 @@ factors_messages.hxx:2440-2471), then send deltas are computed from one
 post-receive snapshot (SendMessages' tmp_factor semantics,
 factors_messages.hxx:2787-2814) and scattered with their omega weights.
 
-The pass runs eagerly in plain PyTorch on ``device``: gather, batched
-min-marginal, out-of-place ``index_add`` scatter.  Every phase's index
-arrays and gathered static message data are uploaded once, when the pass is
-built, as int64 device tensors; running a pass moves nothing from the host.
-All updates are out of place, so a phase's deltas computed from one
-snapshot never see each other's writes, and a state handed out by
-``get_state`` or carried over by ``Solver.build_engine`` stays intact.  On
-CUDA, ``index_add`` sums duplicate indices with float atomics in an order
-that varies from run to run, so results on the card agree within a
-tolerance, not bit for bit.
+The pass is plain PyTorch on ``device``: gather, batched min-marginal,
+out-of-place ``index_add`` scatter.  Every phase's index arrays and
+gathered static message data are uploaded once, when the pass is built, as
+int64 device tensors; running a pass moves nothing from the host.  All
+updates are out of place, so a phase's deltas computed from one snapshot
+never see each other's writes.
+
+``use_jit=True`` (the default, as in the JAX package) runs every device
+program through ``capture.Graphs``: on CUDA each dual pass (per direction
+and weight mode), primal pass, restricted pass, partition and overlapping
+sub-pass, the bound's device sum, ``evaluate_primal`` and the consistency
+check is captured once per build as a CUDA graph and replayed; on the CPU
+the same buffer logic runs around direct calls, with bit-equal results.
+The state then lives in fixed buffers that each pass overwrites:
+``get_state`` hands out clones, ``set_state`` copies into the buffers, and
+a state that ``get_state`` handed out, or that ``Solver.build_engine``
+carried over, stays intact.  ``use_jit=False`` runs every pass eagerly and
+rebinds ``state`` to new tensors.  On CUDA, ``index_add`` sums duplicate
+indices with float atomics in an order that varies from run to run, so
+results on the card agree within a tolerance, not bit for bit.
 
 Not ported: the ``lax.scan`` pass (it keeps XLA's compile time O(1) in the
-phase count; eager torch compiles nothing), the scatter-free pull pass
-(``engine_pull``, a workaround for slow TPU scatter) and ``use_jit``.
+phase count; a CUDA graph records the unrolled pass) and the scatter-free
+pull pass (``engine_pull``, a workaround for slow TPU scatter).
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 
 from . import schedule as sched
+from .capture import Graphs
 from .config import (PAD_COST, Direction, ReparametrizationMode, entry_device, eps_for,
                      real_dtype)
 from .convert import block_from_numpy
@@ -200,12 +211,13 @@ class _DevPlan:
 
 
 class Engine:
-    """Compiled model + eager passes over it, on ``device`` in ``dtype``
-    (default: ``config.real_dtype(device)``)."""
+    """Compiled model + passes over it, on ``device`` in ``dtype``
+    (default: ``config.real_dtype(device)``), captured as CUDA graphs with
+    ``use_jit`` (module docstring)."""
 
     def __init__(self, graph: FactorGraph, schedule_mode: str = "wavefront",
                  update_mode: str = "shared", inner_iteration: int = 5,
-                 device="cuda", dtype: "torch.dtype | None" = None):
+                 device="cuda", dtype: "torch.dtype | None" = None, use_jit: bool = True):
         self.device = entry_device(device)
         self.dtype = dtype or real_dtype(self.device)
         if schedule_mode == "auto":
@@ -384,6 +396,12 @@ class Engine:
         self._restricted_fns: dict = {}
         self._partition = None          # construct_factor_partition cache
         self._overlapping = None
+        self.jit = Graphs(self.device, enabled=use_jit, name="Engine")
+        self.state = self.jit.adopt(self.state)
+        self._graphed: dict = {}
+        self._bound_fn = self.jit.jit(self._lower_bound_impl, "lower bound")
+        self._evaluate_fn = self.jit.jit(self._evaluate_impl, "evaluate_primal")
+        self._consistent_fn = self.jit.jit(self._consistent_all, "primal consistency")
 
     # ------------------------------------------------------------------
     def _index(self, a) -> torch.Tensor:
@@ -820,13 +838,37 @@ class Engine:
     # ------------------------------------------------------------------
     # public API (Solver-facing, mirrors LP<FMC>)
     # ------------------------------------------------------------------
+    def _pass(self, kind: str, mode, direction: Direction):
+        """The captured pass of ``kind`` ("dual", "primal" or "restricted")
+        for one weight mode and direction: a function of the state that
+        returns (new state, primal or None)."""
+        mode = ReparametrizationMode.convert(mode)
+        key = (kind, mode, direction)
+        g = self._graphed.get(key)
+        if g is None:
+            w = self.weights(mode, direction)
+            if kind == "dual":
+                fn = self._pass_fns[direction]
+
+                def run(state):
+                    return fn(state, w), None
+            else:
+                if kind == "restricted" and direction not in self._restricted_fns:
+                    self._restricted_fns[direction] = self._make_pass(
+                        self._dev_plans[direction], primal=True, restricted=True)
+                fn = (self._restricted_fns if kind == "restricted" else self._primal_fns)[direction]
+
+                def run(state):
+                    return fn(state, self._init_primal(state), w)
+            g = self._graphed[key] = self.jit.jit(
+                run, f"{kind} pass {direction.name} {mode.name}", donate=(0,))
+        return g
+
     def compute_forward_pass(self, mode) -> None:
-        self.state = self._pass_fns[Direction.forward](
-            self.state, self.weights(mode, Direction.forward))
+        self.state, _ = self._pass("dual", mode, Direction.forward)(self.state)
 
     def compute_backward_pass(self, mode) -> None:
-        self.state = self._pass_fns[Direction.backward](
-            self.state, self.weights(mode, Direction.backward))
+        self.state, _ = self._pass("dual", mode, Direction.backward)(self.state)
 
     def compute_pass(self, mode) -> None:
         """One iteration, routed by --reparametrizationType (LP_MP.h:869-887):
@@ -854,11 +896,12 @@ class Engine:
         upd = np.zeros(n, dtype=bool)
         upd[np.asarray(order)] = True
         upd &= self.updated
-        w = sched.compute_anisotropic_weights(order, n, self.descs, upd)
+        w = self._weights_to_dict(sched.compute_anisotropic_weights(order, n, self.descs, upd))
         phases = sched.levelize(order, n, self.descs, upd)
         fn = self._make_pass(self._device_plans(self._build_plans(phases)),
                              primal=False)
-        return fn, self._weights_to_dict(w)
+        return self.jit.jit(lambda state: (fn(state, w), None),
+                            f"sub-pass over {len(order)} factors", donate=(0,))
 
     def construct_factor_partition(self) -> None:
         """Union-find blocks from put_in_same_partition pairs, ordered and
@@ -920,9 +963,8 @@ class Engine:
             ov_b.append(self._subset_pass(np.asarray(b + a[::-1])))
         self._overlapping = (ov_f, ov_b)
 
-    def _run_subset(self, pass_and_weights) -> None:
-        fn, w = pass_and_weights
-        self.state = fn(self.state, w)
+    def _run_subset(self, sub_pass) -> None:
+        self.state, _ = sub_pass(self.state)
 
     def compute_partition_pass(self, no_passes: int) -> None:
         """Staged block optimization (compute_partition_pass,
@@ -964,9 +1006,11 @@ class Engine:
     # ------------------------------------------------------------------
     # primal
     # ------------------------------------------------------------------
+    def _init_primal(self, state: dict) -> dict:
+        return {name: self.ftypes[name].init_primal(block) for name, block in state.items()}
+
     def init_primal(self) -> dict:
-        return {name: self.ftypes[name].init_primal(block)
-                for name, block in self.state.items()}
+        return self._init_primal(self.state)
 
     def compute_pass_and_primal(self, mode, direction: Direction,
                                 restricted: bool = False) -> dict:
@@ -976,24 +1020,20 @@ class Engine:
         on one-sided restricted messages from already-fixed neighbors
         (factors_messages.hxx:513-566 rounding semantics); the dual sweep is
         unchanged either way."""
-        prim = self.init_primal()
-        if restricted:
-            if direction not in self._restricted_fns:
-                self._restricted_fns[direction] = self._make_pass(
-                    self._dev_plans[direction], primal=True, restricted=True)
-            fn = self._restricted_fns[direction]
-        else:
-            fn = self._primal_fns[direction]
-        self.state, prim = fn(self.state, prim, self.weights(mode, direction))
+        kind = "restricted" if restricted else "primal"
+        self.state, prim = self._pass(kind, mode, direction)(self.state)
         return prim
+
+    def _lower_bound_impl(self, state: dict) -> torch.Tensor:
+        total = torch.zeros((), dtype=torch.float64, device=self.device)
+        for name, block in state.items():
+            total = total + torch.sum(self.ftypes[name].lower_bound(block),
+                                      dtype=torch.float64)
+        return total
 
     def lower_bound(self) -> float:
         """Sum of the per-factor bounds, accumulated in float64."""
-        total = torch.zeros((), dtype=torch.float64, device=self.device)
-        for name, block in self.state.items():
-            total = total + torch.sum(self.ftypes[name].lower_bound(block),
-                                      dtype=torch.float64)
-        return float(total) + self.constant
+        return float(self._bound_fn(self.state)) + self.constant
 
     def _consistent_all(self, prim: dict) -> torch.Tensor:
         ok = torch.ones((), dtype=torch.bool, device=self.device)
@@ -1004,17 +1044,21 @@ class Engine:
             ok = ok & torch.all(c)
         return ok
 
-    def evaluate_primal(self, prim: dict) -> float:
+    def _evaluate_impl(self, state: dict, prim: dict) -> tuple:
         cost = torch.zeros((), dtype=torch.float64, device=self.device)
-        for name, block in self.state.items():
+        for name, block in state.items():
             cost = cost + torch.sum(self.ftypes[name].evaluate_primal(block, prim[name]),
                                     dtype=torch.float64)
-        if not bool(self._consistent_all(prim)):
+        return cost, self._consistent_all(prim)
+
+    def evaluate_primal(self, prim: dict) -> float:
+        cost, ok = self._evaluate_fn(self.state, prim)
+        if not bool(ok):
             return float("inf")
         return float(cost) + self.constant
 
     def check_primal_consistency(self, prim: dict) -> bool:
-        return bool(self._consistent_all(prim))
+        return bool(self._consistent_fn(prim))
 
     # ------------------------------------------------------------------
     # inconsistent-region extraction (LP_MP.h:1638-1684)
@@ -1069,4 +1113,8 @@ class Engine:
                 for name, block in self.state.items()}
 
     def set_state(self, state: dict) -> None:
-        self.state = {name: dict(block) for name, block in state.items()}
+        """Install ``state``: under ``use_jit`` copied into the state buffers
+        where shapes and dtypes match, so the captured passes keep reading
+        them; otherwise (and without ``use_jit``) taken as it is."""
+        self.state = self.jit.assign(self.state, {name: dict(block)
+                                                  for name, block in state.items()})

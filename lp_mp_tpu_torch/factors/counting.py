@@ -44,7 +44,7 @@ def min_corr(b: torch.Tensor, lam: torch.Tensor, out_size: int) -> torch.Tensor:
 def _dp_start(lead: tuple, S: int, like: torch.Tensor) -> torch.Tensor:
     """[*lead, S] partial-sum costs before any variable: 0 at sum 0."""
     dp = torch.full(lead + (S,), INF, dtype=like.dtype, device=like.device)
-    dp[..., 0] = 0.0
+    dp[..., 0].fill_(0.0)     # no host scalar tensor: capturable
     return dp
 
 

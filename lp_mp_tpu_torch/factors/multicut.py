@@ -25,7 +25,6 @@ import itertools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import PAD_COST
 from ..registry import FactorType
@@ -296,7 +295,8 @@ class MulticutWheelKType(FactorType):
         # row 2 of TRIPLET_PATTERNS
         si = 1 - A
         self._si = si
-        self._idx_fc = np.where(si == 1, 1, 2).astype(np.int64)   # [P, k]
+        # [P, k, 4] one-hot of the triangle slot a forced-cut rim edge prices
+        self._oh_fc = np.eye(4)[np.where(si == 1, 1, 2)]
         # masks of the slot-marginal reductions: row 1 / row 2 hub patterns
         self._fc_s1 = forced_cut & (si == 1)
         self._fc_s0 = forced_cut & (si == 0)
@@ -332,7 +332,7 @@ class MulticutWheelKType(FactorType):
         fc = device_table(self._forced_cut, sp)
         fr = device_table(self._free, sp)
         base = sp @ (1.0 - A).T                                          # [F, P]
-        oh_fc = F.one_hot(device_table(self._idx_fc, sp), 4).to(sp.dtype)  # [P, k, 4]
+        oh_fc = device_table(self._oh_fc, sp, sp.dtype)                  # [P, k, 4]
         t_fc = torch.einsum("fkr,pkr->fpk", tri, oh_fc)                  # [F, P, k]
         zero = torch.zeros((), dtype=sp.dtype, device=sp.device)
         contr = torch.where(fc[None], rim[:, None, :] + t_fc,

@@ -163,3 +163,66 @@ def check_sharded_grid_kernels(device="cuda", shapes=CHECK_SHAPES, shard_counts=
                     f"round launches, max abs err " +
                     " ".join(f"{k}={e:.1e}" for k, e in errs.items()))
     return worst
+
+
+def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=print):
+    """Every kernel captured in a CUDA graph (``capture.Graphs``) at
+    ``shape`` (the main path's) and replayed on two inputs, each replay
+    against the plain version on the same input: the sharded kernels over
+    ``shards`` shards on ``device``, as ``ShardedGridPotts`` captures its
+    sweeps.  Returns the max abs error per kernel wrapper name."""
+    from .capture import Graphs
+
+    H, W, L = shape
+    jit = Graphs(device, name="kernel check")
+    lay = RowShards(H, W, [device] * shards)
+    _, hc, vc = random_dense_state(H, W, L, seed, False, device)
+    costs = lay.split_costs(hc, vc)
+    cost_slabs = lay.slabs(costs)
+    v1 = torch.tensor([0, 1, 0], dtype=torch.int32)
+
+    def sweep(kern, params):
+        def run(windows):
+            slabs = lay.slabs(windows)
+            return [kern(w, s, c["hc"], c["vc"], cs, r0, H, W, *params)
+                    for w, s, c, cs, r0 in zip(windows, slabs, costs, cost_slabs, lay.row0)]
+        return run
+
+    def sweep_ref(ref_fn, params, windows):
+        slabs = lay.slabs(windows)
+        return [ref_fn(w, s, c["hc"], c["vc"], cs, r0, H, W, *params)
+                for w, s, c, cs, r0 in zip(windows, slabs, costs, cost_slabs, lay.row0)]
+
+    dense = (("phase_update", lambda s: phase_update(s, hc, vc, 0, 1, 0.0),
+              lambda s: phase_update_ref(s, hc, vc, 0, 1, 0.0)),
+             ("round_update", lambda s: round_update(s, hc, vc, 2),
+              lambda s: round_update_ref(s, hc, vc, 2)),
+             ("phase_update_v1", lambda s: phase_update_v1(v1, s, hc, vc),
+              lambda s: phase_update_ref(s, hc, vc, 0, 1, 0.0)))
+    sharded = (("phase_update_sharded", phase_update_sharded, phase_update_sharded_ref,
+                (0, 1, 0.0)),
+               ("round_update_sharded", round_update_sharded, round_update_sharded_ref, (2,)))
+    worst = {}
+    for name, kern, ref_fn in dense:
+        g = jit.jit(kern, f"{name} replay")
+        for k in range(2):
+            state = random_dense_state(H, W, L, seed + 1 + k, False, device)[0]
+            out = g(state)
+            torch.cuda.synchronize()
+            err = _compare(name, f"{H}x{W}x{L} replay {k}", out, ref_fn(state), lambda line: None)
+            worst[name] = max(worst.get(name, 0.0), err)
+    for name, kern, ref_fn, params in sharded:
+        g = jit.jit(sweep(kern, params), f"{name} sweep replay")
+        for k in range(2):
+            windows = lay.split(random_dense_state(H, W, L, seed + 1 + k, False, device)[0])
+            outs = g(windows)
+            torch.cuda.synchronize()
+            for i, (out, ref) in enumerate(zip(outs, sweep_ref(ref_fn, params, windows))):
+                err = _compare(name, f"{H}x{W}x{L} shard {i} replay {k}", out, ref,
+                               lambda line: None)
+                worst[name] = max(worst.get(name, 0.0), err)
+    st = jit.stats()
+    log(f"check replays at {H}x{W}x{L} ({shards} shards for the sharded kernels): "
+        f"{st['captures']} graphs, {st['replays']} replays, max abs err "
+        + " ".join(f"{k}={e:.1e}" for k, e in worst.items()))
+    return worst

@@ -24,12 +24,21 @@ through the hand-written kernels (``ops/grid_kernels``), ``kernel="torch"``
 through the plain tensor ops.  The state stays one dense dict on the
 model's device; nothing converts it between ``run_fast`` and
 ``lower_bound``.
+
+With ``use_jit`` (the default, as in the JAX package) ``iterate`` (one
+iteration), ``run_fast`` (per ``n``, mode and kernel), ``lower_bound`` and
+``round_primal`` run through ``capture.Graphs``: captured once as CUDA
+graphs on the card and replayed (``run_fast(kernel="cuda")`` then replays
+its kernel launches as one graph), direct calls with the same buffer logic
+on the CPU.  The state then lives in fixed buffers that each call
+overwrites; ``load_state`` copies into them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..capture import Graphs
 from ..config import ReparametrizationMode, entry_device, real_dtype
 from ..ops.grid_kernels import (STATE_KEYS, grid_masks, phase_update, receive,
                                 round_update, send)
@@ -53,7 +62,7 @@ def _potts_min_pair(m1, m2, diff):
 class GridPottsModel:
     """Grid MRF with unary simplex factors and Potts pairwise factors."""
 
-    def __init__(self, unary, hcost, vcost, device="cuda", dtype=None):
+    def __init__(self, unary, hcost, vcost, device="cuda", dtype=None, use_jit: bool = True):
         self.device = entry_device(device)
         self.dtype = dtype or real_dtype(self.device)
         if self.dtype not in _NUMPY_DTYPES:
@@ -75,9 +84,20 @@ class GridPottsModel:
         self.hc = self._tensor(hcost)
         self.vc = self._tensor(vcost)
         self.black, self.deg = grid_masks(H, W, self.device, self.dtype)
+        self.jit = Graphs(self.device, enabled=use_jit, name="GridPottsModel")
+        self.state = self.jit.adopt(self.state)
+        self._iterate_fn = self.jit.jit(
+            lambda s, mode: (self._iterate_impl(s, self._mode_params(mode)), None),
+            "iterate", donate=(0,))
+        self._fast_fn = self.jit.jit(self._run_fast_any, "run_fast", donate=(0,))
+        self._lb_fn = self.jit.jit(self._lower_bound_impl, "lower bound")
+        self._round_fn = self.jit.jit(
+            lambda s, mode: self._round_impl(s, self._mode_params(mode)), "round_primal",
+            donate=(0,))
 
     def _tensor(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        # a copy: the captured calls write the state in place, never into the caller's array
+        return torch.from_numpy(np.array(a, order="C")).to(self.device)
 
     def load_state(self, state) -> "GridPottsModel":
         """Install a dense state dict (u/hm1/hm2/vm1/vm2 tensors, e.g. from
@@ -91,7 +111,7 @@ class GridPottsModel:
             if tuple(t.shape) != want[k]:
                 raise ValueError(f"state[{k!r}] has shape {tuple(t.shape)}, expected {want[k]}")
             new[k] = t.to(device=self.device, dtype=self.dtype).contiguous()
-        self.state = new
+        self.state = self.jit.assign(self.state, new)
         return self
 
     # ------------------------------------------------------------------
@@ -149,10 +169,17 @@ class GridPottsModel:
                     s = self._phase(s, mask, w)
         return s
 
-    def _run_fast_kernels(self, mode, n):
+    def _run_fast_any(self, s, n, mode, kernel):
+        """(new state, None) after ``run_fast(n, mode, kernel)`` from ``s``."""
+        if kernel == "cuda":
+            return self._run_fast_kernels(s, mode, n), None
+        return self._run_fast_impl(s, self._mode_params(mode), n,
+                                   fuse=mode in _ANISOTROPIC), None
+
+    def _run_fast_kernels(self, s, mode, n):
         """The fused schedule of ``_run_fast_pallas`` (grid_potts.py:243-288)
         through the kernel wrappers.  Colour codes: 1=black, 2=red."""
-        s, hc, vc = self.state, self.hc, self.vc
+        hc, vc = self.hc, self.vc
         if mode in _ANISOTROPIC:
             # send-only black prologue, then kernels covering two full rounds
             # per pass, and a single-round pass for an odd remainder
@@ -171,7 +198,7 @@ class GridPottsModel:
                     s = phase_update(s, hc, vc, *p)
         else:
             raise NotImplementedError(f"{mode} not supported on grid model")
-        self.state = s
+        return s
 
     # ------------------------------------------------------------------
     def _lower_bound_impl(self, s):
@@ -205,16 +232,16 @@ class GridPottsModel:
         ub += torch.sum(pick(s["vm1"], xt), dtype=f64)
         ub += torch.sum(pick(s["vm2"], xb), dtype=f64)
         ub += torch.sum(torch.where(xt != xb, self.vc, zero_v), dtype=f64)
-        return s, x, ub
+        return s, (x, ub)
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
     def iterate(self, mode="anisotropic", n: int = 1):
         """n exact forward+backward iterations (LP::ComputePass)."""
-        params = self._mode_params(mode)
+        mode = ReparametrizationMode.convert(mode)
         for _ in range(n):
-            self.state = self._iterate_impl(self.state, params)
+            self.state, _ = self._iterate_fn(self.state, mode=mode)
         return self
 
     def run_fast(self, n: int, mode="anisotropic", kernel="cuda"):
@@ -225,21 +252,16 @@ class GridPottsModel:
         their plain versions for a model on the CPU.  kernel="torch" runs
         the plain tensor-op path (JAX's kernel="xla")."""
         mode = ReparametrizationMode.convert(mode)
-        if kernel == "cuda":
-            self._run_fast_kernels(mode, n)
-        elif kernel == "torch":
-            self.state = self._run_fast_impl(self.state, self._mode_params(mode), n,
-                                             fuse=mode in _ANISOTROPIC)
-        else:
+        if kernel not in ("cuda", "torch"):
             raise ValueError(f"kernel must be 'cuda' or 'torch', got {kernel!r}")
+        self.state, _ = self._fast_fn(self.state, n=n, mode=mode, kernel=kernel)
         return self
 
     def lower_bound(self) -> float:
-        return float(self._lower_bound_impl(self.state))
+        return float(self._lb_fn(self.state))
 
     def round_primal(self, mode="damped_uniform"):
-        params = self._mode_params(mode)
-        self.state, x, ub = self._round_impl(self.state, params)
+        self.state, (x, ub) = self._round_fn(self.state, mode=ReparametrizationMode.convert(mode))
         return x.to(torch.int32).cpu().numpy(), float(ub)
 
 

@@ -209,16 +209,27 @@ def sharded_phase(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int,
     return _window(new, n), uu[:, SLAB:SLAB + n]
 
 
+def _write_into(out, new):
+    """``new`` (a window dict) copied into ``out``, or ``new`` where ``out`` is None."""
+    if out is None:
+        return new
+    for k in STATE_KEYS:
+        out[k].copy_(new[k])
+    return out
+
+
 def phase_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int,
-                             W: int, recv_color: int, send_color: int, leave: float = 0.0):
+                             W: int, recv_color: int, send_color: int, leave: float = 0.0,
+                             out=None):
     """One colour phase on a shard's window, plain torch (the math of
-    ``_phase_kernel_sharded``; mirrors ``parallel/grid.py:_phase_arrays``)."""
-    return sharded_phase(window, slabs, hc_win, vc_win, cost_slabs, row0, H,
-                         recv_color, send_color, leave)[0]
+    ``_phase_kernel_sharded``; mirrors ``parallel/grid.py:_phase_arrays``).
+    ``out`` as for ``phase_update_sharded``."""
+    return _write_into(out, sharded_phase(window, slabs, hc_win, vc_win, cost_slabs, row0, H,
+                                          recv_color, send_color, leave)[0])
 
 
 def round_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int,
-                             W: int, n_rounds: int = 1):
+                             W: int, n_rounds: int = 1, out=None):
     """``n_rounds`` anisotropic rounds on a shard's window, plain torch (the
     math of ``_round_kernel_sharded``): the 2 * n_rounds <= SLAB phases run on
     the window with its slabs, and the window is cut out at the end."""
@@ -228,7 +239,7 @@ def round_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0: in
     for _ in range(n_rounds):
         ext, _ = _sharded_phase_ext(ext, hc, vc, grow, H, 2, 2, 0.0)
         ext, _ = _sharded_phase_ext(ext, hc, vc, grow, H, 1, 1, 0.0)
-    return _window(ext, n)
+    return _write_into(out, _window(ext, n))
 
 
 # ---------------------------------------------------------------------------
@@ -336,9 +347,25 @@ def _launch(fn_name: str, state, hc, vc, *scalars):
     return _run(fn_name, state["u"].device, ptrs, out, L, H, W, *scalars)
 
 
-def _launch_sharded(fn_name: str, named, L, n, row0, H, W, *scalars):
+def _check_out(out, named):
+    """``out`` fits the window of ``named`` (shape, dtype, device, contiguous)
+    and shares no memory with any input of the launch, or raise."""
+    inputs = {t.untyped_storage().data_ptr() for t in named.values() if t.numel()}
+    for k in STATE_KEYS:
+        t, w = out[k], named[k]
+        if (t.shape, t.dtype, t.device) != (w.shape, w.dtype, w.device) or not t.is_contiguous():
+            raise ValueError(f"out[{k!r}] must be a contiguous {w.dtype} tensor of shape "
+                             f"{tuple(w.shape)} on {w.device}")
+        if t.numel() and t.untyped_storage().data_ptr() in inputs:
+            raise ValueError(f"out[{k!r}] shares memory with an input of the launch")
+
+
+def _launch_sharded(fn_name: str, named, L, n, row0, H, W, *scalars, out=None):
     window = {k: named[k] for k in STATE_KEYS}
-    out = {k: torch.empty_like(window[k]) for k in STATE_KEYS}
+    if out is None:
+        out = {k: torch.empty_like(window[k]) for k in STATE_KEYS}
+    else:
+        _check_out(out, named)
     ptrs = [t.data_ptr() for t in named.values()] + [out[k].data_ptr() for k in STATE_KEYS]
     slab_ls = [t.stride(0) if t.ndim == 3 else 0
                for name, t in named.items() if name.endswith("slab")]
@@ -421,28 +448,31 @@ def round_tile(L: int, n_rounds: int, tile=(0, 0)) -> dict:
 
 
 def phase_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int, W: int,
-                         recv_color: int, send_color: int, leave: float = 0.0):
+                         recv_color: int, send_color: int, leave: float = 0.0, out=None):
     """One colour phase on a shard's window (sharded layout above); replaces
     ``phase_update_sharded`` of the TPU package.  ``slabs``: dict of
     ``(top, bottom)`` per state array; ``cost_slabs``: the same for hc, vc.
-    Returns the window's new state dict."""
+    Returns the window's new state dict: ``out`` where given (a window dict
+    that shares no memory with the inputs, written in place; the kernel
+    writes there directly), else a new one."""
     named = _sharded_tensors(window, slabs, hc_win, vc_win, cost_slabs)
     dev = _device_of_tensors(named.values())
     L, n = _check_sharded_args(named, row0, H, W, cuda=dev.type == "cuda")
     _check_colours(recv_color, send_color)
     if dev.type == "cpu":
         return phase_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0, H, W,
-                                        recv_color, send_color, leave)
+                                        recv_color, send_color, leave, out=out)
     out = _launch_sharded("lpmp_grid_phase_update_sharded", named, L, n, row0, H, W,
-                          int(recv_color), int(send_color), float(leave))
+                          int(recv_color), int(send_color), float(leave), out=out)
     phase_update_sharded.launches += 1
     return out
 
 
 def round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int, W: int,
-                         n_rounds: int = 1):
+                         n_rounds: int = 1, out=None):
     """``n_rounds`` (1 or 2) anisotropic rounds in one pass over a shard's
-    window; replaces ``round_update_sharded`` of the TPU package."""
+    window; replaces ``round_update_sharded`` of the TPU package.  ``out`` as
+    for ``phase_update_sharded``."""
     if n_rounds not in (1, 2):
         raise ValueError(f"n_rounds must be 1 or 2, got {n_rounds!r}")
     named = _sharded_tensors(window, slabs, hc_win, vc_win, cost_slabs)
@@ -450,10 +480,10 @@ def round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H
     L, n = _check_sharded_args(named, row0, H, W, cuda=dev.type == "cuda")
     if dev.type == "cpu":
         return round_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0, H, W,
-                                        n_rounds)
+                                        n_rounds, out=out)
     _check_round_labels(L, "round_update_sharded")
     out = _launch_sharded("lpmp_grid_round_update_sharded", named, L, n, row0, H, W,
-                          int(n_rounds), 0, 0)
+                          int(n_rounds), 0, 0, out=out)
     round_update_sharded.launches += 1
     return out
 
@@ -472,3 +502,12 @@ reset_launch_counts()
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` ({wrapper name: launches}) to the wrappers' counts: a
+    CUDA graph's replay launches the kernels its capture recorded without
+    running the wrappers (``capture.py``)."""
+    by_name = {fn.__name__: fn for fn in KERNEL_WRAPPERS}
+    for name, n in counts.items():
+        by_name[name].launches += n

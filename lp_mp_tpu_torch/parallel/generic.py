@@ -33,6 +33,14 @@ As in the JAX package, the shards run the default update mode: no residual
 or adaptive resend sub-rounds.  On CUDA, ``index_add`` sums duplicate
 indices in an unfixed order, so results on the card agree within a
 tolerance; on the CPU they agree with ``Engine`` to float rounding.
+
+With ``use_jit`` (the default, as in the JAX package) the dual pass, the
+rounding pass and the bound run through ``capture.Graphs``: when every shard
+sits on one CUDA device, each is one CUDA graph over all shards, the
+cross-shard ``.to`` calls are no-ops and the consensus is a sum inside the
+graph; on the CPU the same buffer logic runs around direct calls.  Shards on
+several CUDA devices run eagerly: one graph holds the work of one device,
+and capturing per device with the copies between them is not done yet.
 """
 from __future__ import annotations
 
@@ -43,7 +51,8 @@ import numpy as np
 import torch
 
 from .. import schedule as sched
-from ..config import Direction, entry_device, real_dtype
+from ..capture import Graphs
+from ..config import Direction, ReparametrizationMode, entry_device, real_dtype
 from ..engine import Engine, _bmul, _gather, _take_rows
 
 # op kind -> (sender side, weight key)
@@ -108,7 +117,7 @@ class ShardedEngine:
 
     def __init__(self, graph, devices: "Sequence | None" = None,
                  schedule_mode: str = "coloring", owner: "np.ndarray | None" = None,
-                 dtype: "torch.dtype | None" = None):
+                 dtype: "torch.dtype | None" = None, use_jit: bool = True):
         """``devices``: one per shard; by default every CUDA device, one
         shard each.  Pass ``devices=["cpu"] * n`` to run on the CPU."""
         if devices is None:
@@ -123,7 +132,11 @@ class ShardedEngine:
         # the unsharded oracle on the first device: schedule, plans, weights,
         # blocks, and the primal evaluation over the merged state
         base = self.base = Engine(graph, schedule_mode=schedule_mode, device=self.dev0,
-                                  dtype=self.dtype)
+                                  dtype=self.dtype, use_jit=use_jit)
+        self.jit = Graphs(self.dev0, enabled=use_jit and len(set(self.devices)) == 1,
+                          name="ShardedEngine")
+        self._graphed: dict = {}
+        self._local = None
         self.graph = graph
         self.constant = base.constant
         self.ftypes = base.ftypes
@@ -330,11 +343,13 @@ class ShardedEngine:
     # block split and merge between global [F, ...] and per-shard blocks
     # ------------------------------------------------------------------
     def set_state(self, state: dict) -> None:
-        """Install a global dual state (``Engine.state`` layout)."""
-        self._local = [
-            {t: {k: v.to(self.dev0)[self._perm_dev0[t][d]].to(self.devices[d])
-                 for k, v in state[t].items()} for t in state}
-            for d in range(self.n)]
+        """Install a global dual state (``Engine.state`` layout); under
+        ``use_jit`` copied into the shards' buffers."""
+        new = [{t: {k: v.to(self.dev0)[self._perm_dev0[t][d]].to(self.devices[d])
+                    for k, v in state[t].items()} for t in state}
+               for d in range(self.n)]
+        self._local = (self.jit.adopt(new) if self._local is None
+                       else self.jit.assign(self._local, new))
 
     def _merge(self, per_shard: list, t: str) -> dict:
         out = {}
@@ -376,9 +391,9 @@ class ShardedEngine:
             self._wcache[key] = out
         return self._wcache[key]
 
-    def _delta(self, op: _DualOp, wv: torch.Tensor) -> torch.Tensor:
+    def _delta(self, local: list, op: _DualOp, wv: torch.Tensor) -> torch.Tensor:
         mt = self.msgs[op.name].mtype
-        block = self._local[op.shard][op.st]
+        block = local[op.shard][op.st]
         right = _KINDS[op.kind][0] == "right"
         if op.kind[0] == "r":
             hook = mt.marginal_right_block if right else mt.marginal_left_block
@@ -389,11 +404,11 @@ class ShardedEngine:
         marg = mt.marginal_right if right else mt.marginal_left
         return _bmul(marg(_gather(block, op.srow), op.data), wv)
 
-    def _dual_group(self, ops: list, w: dict) -> None:
+    def _dual_group(self, local: list, ops: list, w: dict) -> None:
         """Deltas of every op from one snapshot, then the sender, local
         receiver and cut-buffer scatters, then the consensus of the cut
-        buffers."""
-        deltas = [self._delta(op, w[op.i]) for op in ops]
+        buffers; ``local`` (the per-shard blocks) is updated in place."""
+        deltas = [self._delta(local, op, w[op.i]) for op in ops]
         bufs: dict = {}                     # receiver type -> {shard: buffer}
         zero: dict = {}
         for op, delta in zip(ops, deltas):
@@ -401,7 +416,7 @@ class ShardedEngine:
             right = _KINDS[op.kind][0] == "right"
             repam_s = mt.repam_right if right else mt.repam_left
             repam_r = mt.repam_left if right else mt.repam_right
-            loc = self._local[op.shard]
+            loc = local[op.shard]
             loc[op.st] = repam_s(loc[op.st], op.srow, -delta, op.data)
             if op.loc is not None:
                 d = delta if op.loc.pos is None else _take_rows(delta, op.loc.pos)
@@ -428,10 +443,10 @@ class ShardedEngine:
                 dev = self.devices[d]
                 if dev not in moved:
                     moved[dev] = {k: v.to(dev) for k, v in total.items()}
-                blk = dict(self._local[d][t])
+                blk = dict(local[d][t])
                 for k, v in moved[dev].items():
                     blk[k] = blk[k].index_add(0, rows, _take_rows(v, slots))
-                self._local[d][t] = blk
+                local[d][t] = blk
 
     def _exchange_primal(self, prim: list, types: list) -> dict:
         """The cut source-primal rows of ``types``, each from its owner,
@@ -448,16 +463,18 @@ class ShardedEngine:
             out[t] = vals
         return out
 
-    def _run(self, direction: Direction, w: dict, prim: "list | None") -> None:
+    def _run(self, local: list, direction: Direction, w: dict, prim: "list | None") -> None:
+        """One sweep over ``local`` (updated in place), with the rounding
+        interleaved where ``prim`` is given."""
         for ph in self._plans[direction]:
-            self._dual_group(ph.recv, w)
+            self._dual_group(local, ph.recv, w)
             if prim is not None:
                 for d, t, rows in ph.frows:
                     p = prim[d]
-                    newp = self.ftypes[t].compute_primal(_gather(self._local[d][t], rows),
+                    newp = self.ftypes[t].compute_primal(_gather(local[d][t], rows),
                                                          _gather(p[t], rows))
                     p[t] = {k: p[t][k].index_put((rows,), newp[k]) for k in p[t]}
-            self._dual_group(ph.send, w)
+            self._dual_group(local, ph.send, w)
             if prim is None:
                 continue
             for l2r, ops, cut_types in ph.prop:
@@ -496,40 +513,69 @@ class ShardedEngine:
     def weights(self, mode, direction: Direction) -> dict:
         return self.base.weights(mode, direction)
 
+    def _pass(self, mode, direction: Direction, primal: bool):
+        """The captured sweep for one weight mode and direction: a function
+        of the per-shard blocks that returns (new blocks, primal or None)."""
+        mode = ReparametrizationMode.convert(mode)
+        key = (mode, direction, primal)
+        g = self._graphed.get(key)
+        if g is None:
+            w = self._op_weights(mode, direction)
+
+            def run(local):
+                local = [dict(loc) for loc in local]
+                if not primal:
+                    self._run(local, direction, w, None)
+                    return local, None
+                prim = self._init_primal(local)
+                self._run(local, direction, w, prim)
+                for d, t, rows in self._unupd:
+                    p = prim[d]
+                    newp = self.ftypes[t].compute_primal(_gather(local[d][t], rows),
+                                                         _gather(p[t], rows))
+                    p[t] = {k: p[t][k].index_put((rows,), newp[k]) for k in p[t]}
+                return local, prim
+            g = self._graphed[key] = self.jit.jit(
+                run, f"{'primal' if primal else 'dual'} pass {direction.name} {mode.name}",
+                donate=(0,))
+        return g
+
     def compute_forward_pass(self, mode) -> None:
-        self._run(Direction.forward, self._op_weights(mode, Direction.forward), None)
+        self._local, _ = self._pass(mode, Direction.forward, False)(self._local)
 
     def compute_backward_pass(self, mode) -> None:
-        self._run(Direction.backward, self._op_weights(mode, Direction.backward), None)
+        self._local, _ = self._pass(mode, Direction.backward, False)(self._local)
 
     def compute_pass(self, mode) -> None:
         self.compute_forward_pass(mode)
         self.compute_backward_pass(mode)
 
-    def lower_bound(self) -> float:
-        """Sum of the per-factor bounds over every shard, in float64."""
+    def _lower_bound_impl(self, local: list) -> torch.Tensor:
         total = torch.zeros((), dtype=torch.float64, device=self.dev0)
-        for d, loc in enumerate(self._local):
+        for d, loc in enumerate(local):
             for t, block in loc.items():
                 if self.n_rows[d][t]:
                     s = torch.sum(self.ftypes[t].lower_bound(block), dtype=torch.float64)
                     total = total + s.to(self.dev0)
-        return float(total) + self.constant
+        return total
+
+    def lower_bound(self) -> float:
+        """Sum of the per-factor bounds over every shard, in float64."""
+        if "bound" not in self._graphed:
+            self._graphed["bound"] = self.jit.jit(self._lower_bound_impl, "lower bound")
+        return float(self._graphed["bound"](self._local)) + self.constant
+
+    def _init_primal(self, local: list) -> list:
+        return [{t: self.ftypes[t].init_primal(block) for t, block in loc.items()}
+                for loc in local]
 
     def init_primal(self) -> list:
-        return [{t: self.ftypes[t].init_primal(block) for t, block in loc.items()}
-                for loc in self._local]
+        return self._init_primal(self._local)
 
     def compute_pass_and_primal(self, mode, direction: Direction) -> list:
         """Rounding pass: a fresh primal per shard, interleaved with the
         sweep; then the local argmin of the factors outside the schedule."""
-        prim = self.init_primal()
-        self._run(direction, self._op_weights(mode, direction), prim)
-        for d, t, rows in self._unupd:
-            p = prim[d]
-            newp = self.ftypes[t].compute_primal(_gather(self._local[d][t], rows),
-                                                 _gather(p[t], rows))
-            p[t] = {k: p[t][k].index_put((rows,), newp[k]) for k in p[t]}
+        self._local, prim = self._pass(mode, direction, True)(self._local)
         return prim
 
     def evaluate_primal(self, prim: list) -> float:

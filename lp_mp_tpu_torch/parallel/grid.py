@@ -19,15 +19,27 @@ coordinate update equals ``GridPottsModel``'s, and ``dense_state()`` equals
 the dense model's state exactly.  Shards on one device read their slabs as
 views of the neighbours' windows; with distinct devices the slabs are
 device-to-device copies.
+
+The windows live in two fixed sets, and every sweep reads one set and
+writes the other in place (the kernels take their output windows), so no
+sweep allocates or copies its state.  With ``use_jit`` (the default, as in
+the JAX package) each sweep in each direction between the sets, the bound
+and the rounding pass run through ``capture.Graphs``: when every shard sits
+on one CUDA device, a sweep is one CUDA graph over all shards (the slab
+views and each shard's kernel launch; the counterpart of the JAX package's
+jitted ``shard_map`` per sweep), which ``run_fast`` replays; two graphs per
+sweep swap the sets.  On the CPU the same calls run directly.  Shards on
+several CUDA devices run eagerly (one graph holds one device's work).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..capture import Graphs
 from ..config import ReparametrizationMode, entry_device, real_dtype
 from ..models.grid_potts import _NUMPY_DTYPES, _potts_min_pair
-from ..ops.grid_kernels import (SLAB, STATE_KEYS, phase_update_sharded,
+from ..ops.grid_kernels import (SLAB, STATE_KEYS, _write_into, phase_update_sharded,
                                 phase_update_sharded_ref, round_update_sharded, sharded_phase)
 
 _ANISOTROPIC = (ReparametrizationMode.anisotropic, ReparametrizationMode.anisotropic2)
@@ -146,7 +158,7 @@ class ShardedGridPotts:
     ``round_primal`` and ``dense_state`` mirror the JAX ``ShardedGridPotts``.
     """
 
-    def __init__(self, unary, hcost, vcost, devices=None, dtype=None):
+    def __init__(self, unary, hcost, vcost, devices=None, dtype=None, use_jit: bool = True):
         """``devices``: one per shard; by default every CUDA device, one
         shard each.  Pass ``devices=["cpu"] * n`` to run on the CPU."""
         if devices is None:
@@ -158,6 +170,11 @@ class ShardedGridPotts:
         self.H, self.W, self.L = H, W, L
         self.layout = RowShards(H, W, devices)
         self.devices, self.n = self.layout.devices, self.layout.n
+        self.jit = Graphs(self.devices[0], enabled=use_jit and len(set(self.devices)) == 1,
+                          name="ShardedGridPotts")
+        self._graphed: dict = {}
+        self._sets = None       # two window lists; sweeps read self._cur, write the other
+        self._cur = 0
         self.dtype = dtype or real_dtype(self.devices[0])
         if self.dtype not in _NUMPY_DTYPES:
             raise TypeError(f"ShardedGridPotts takes float32 or float64, not {self.dtype}")
@@ -189,17 +206,47 @@ class ShardedGridPotts:
             if tuple(t.shape) != want[k]:
                 raise ValueError(f"state[{k!r}] has shape {tuple(t.shape)}, expected {want[k]}")
             dense[k] = t.to(dtype=self.dtype)
-        self.windows = self.layout.split(dense)
+        new = self.layout.split(dense)
+        if self._sets is None:
+            self._sets = [new, [{k: v.clone() for k, v in w.items()} for w in new]]
+        else:       # in place: the captured graphs keep reading the same buffers
+            for w, nw in zip(self.windows, new):
+                for k in STATE_KEYS:
+                    w[k].copy_(nw[k])
         return self
 
+    @property
+    def windows(self) -> list:
+        """The current state: one window dict per shard (sharded layout of
+        ``ops/grid_kernels.py``)."""
+        return self._sets[self._cur]
+
     # ------------------------------------------------------------------
+    def _graph(self, key, make, name: str):
+        """The captured function of ``key``, made by ``make()`` on first use."""
+        g = self._graphed.get(key)
+        if g is None:
+            g = self._graphed[key] = self.jit.jit(make(), name)
+        return g
+
     def _sweep(self, phase_fn, *params):
-        """One launch per shard, all from slabs cut before the first."""
-        slabs = self.layout.slabs(self.windows)
-        self.windows = [
-            phase_fn(w, s, c["hc"], c["vc"], cs, row0, self.H, self.W, *params)
-            for w, s, c, cs, row0 in zip(self.windows, slabs, self.costs, self.cost_slabs,
-                                         self.layout.row0)]
+        """One launch per shard, all from slabs cut before the first, from the
+        current set of windows into the other; one captured graph per phase
+        function, parameters and direction."""
+        src, dst = self._cur, 1 - self._cur
+
+        def make():
+            a, b = self._sets[src], self._sets[dst]
+
+            def sweep():
+                slabs = self.layout.slabs(a)
+                for w, s, c, cs, row0, o in zip(a, slabs, self.costs, self.cost_slabs,
+                                                self.layout.row0, b):
+                    phase_fn(w, s, c["hc"], c["vc"], cs, row0, self.H, self.W, *params, out=o)
+            return sweep
+        self._graph((phase_fn.__name__, params, src), make,
+                    f"sweep {phase_fn.__name__}{params} into set {dst}")()
+        self._cur = dst
 
     def iterate(self, mode="anisotropic", n: int = 1):
         """n exact forward+backward iterations, plain torch per shard."""
@@ -231,30 +278,55 @@ class ShardedGridPotts:
         return self
 
     # ------------------------------------------------------------------
-    def lower_bound(self) -> float:
+    def _lower_bound_impl(self, windows):
         f64 = torch.float64
         # per window row: the slot the cell below owns on the edge below
-        vm2_below = self.layout.rows_below([w["vm2"] for w in self.windows])
-        lb = 0.0
-        for w, c, below in zip(self.windows, self.costs, vm2_below):
+        vm2_below = self.layout.rows_below([w["vm2"] for w in windows])
+        lb = torch.zeros((), dtype=f64, device=self.devices[0])
+        for w, c, below in zip(windows, self.costs, vm2_below):
             s = torch.sum(torch.amin(w["u"], dim=0), dtype=f64)
             s += torch.sum(_potts_min_pair(w["hm1"], w["hm2"], c["hc"]), dtype=f64)
             s += torch.sum(_potts_min_pair(w["vm1"], below, c["vc"]), dtype=f64)
-            lb += float(s)
+            lb = lb + s.to(lb.device)
         return lb
+
+    def lower_bound(self) -> float:
+        a = self.windows
+        g = self._graph(("bound", self._cur), lambda: lambda: self._lower_bound_impl(a),
+                        f"lower bound of set {self._cur}")
+        return float(g())
 
     def round_primal(self, mode="damped_uniform"):
         """One rounding pass (MpRoundingSolver semantics): run the phases,
         labelling each updated cell by the argmin of its post-receive cost;
         the primal cost is summed over the shards.  Returns (labels int32
         [H, W], ub)."""
+        src, dst = self._cur, 1 - self._cur
+        a, b = self._sets[src], self._sets[dst]
+
+        def make():
+            def round_pass(mode):
+                new, extra = self._round_impl(a, mode)
+                for o, nw in zip(b, new):
+                    _write_into(o, nw)
+                return extra
+            return round_pass
+        xs, ub = self._graph(("round", src), make, f"round_primal into set {dst}")(
+            mode=ReparametrizationMode.convert(mode))
+        self._cur = dst
+        labels = torch.cat([x.cpu() for x in xs], dim=0)[:self.H]
+        return labels.to(torch.int32).numpy(), float(ub)
+
+    def _round_impl(self, windows, mode):
+        """The device part of ``round_primal``: (new windows, (per-shard
+        labels, ub as a float64 scalar))."""
         H = self.H
         xs = [torch.zeros((self.layout.Hl, self.W), dtype=torch.int64, device=dev)
               for dev in self.devices]
         for ph in mode_phases(mode):
-            slabs = self.layout.slabs(self.windows)
+            slabs = self.layout.slabs(windows)
             new = []
-            for i, (w, s, c, cs, row0) in enumerate(zip(self.windows, slabs, self.costs,
+            for i, (w, s, c, cs, row0) in enumerate(zip(windows, slabs, self.costs,
                                                         self.cost_slabs, self.layout.row0)):
                 nw, uu = sharded_phase(w, s, c["hc"], c["vc"], cs, row0, H, *ph)
                 g = torch.arange(row0, row0 + self.layout.Hl, device=uu.device)[:, None]
@@ -264,16 +336,16 @@ class ShardedGridPotts:
                 active = (g < H) & ((black & (1 in colours)) | (~black & (2 in colours)))
                 xs[i] = torch.where(active, torch.argmin(uu, dim=0), xs[i])
                 new.append(nw)
-            self.windows = new
+            windows = new
 
         def pick(t, labels):
             return torch.gather(t, 0, labels[None])[0]
 
         f64 = torch.float64
         x_below = self.layout.rows_below(xs)
-        vm2_below = self.layout.rows_below([w["vm2"] for w in self.windows])
-        ub = 0.0
-        for w, c, x, xb, below in zip(self.windows, self.costs, xs, x_below, vm2_below):
+        vm2_below = self.layout.rows_below([w["vm2"] for w in windows])
+        ub = torch.zeros((), dtype=f64, device=self.devices[0])
+        for w, c, x, xb, below in zip(windows, self.costs, xs, x_below, vm2_below):
             xl, xr = x[:, :-1], x[:, 1:]
             s = torch.sum(pick(w["u"], x), dtype=f64)
             s += torch.sum(pick(w["hm1"], xl), dtype=f64)
@@ -282,9 +354,8 @@ class ShardedGridPotts:
             s += torch.sum(pick(w["vm1"], x), dtype=f64)
             s += torch.sum(pick(below, xb), dtype=f64)
             s += torch.sum(torch.where(x != xb, c["vc"], torch.zeros_like(c["vc"])), dtype=f64)
-            ub += float(s)
-        labels = torch.cat([x.cpu() for x in xs], dim=0)[:H]
-        return labels.to(torch.int32).numpy(), ub
+            ub = ub + s.to(ub.device)
+        return windows, (xs, ub)
 
     def dense_state(self):
         """The state in the dense layout of ``GridPottsModel.state``, on the

@@ -7,7 +7,10 @@ Replicates ``Solver`` / ``MpRoundingSolver`` (solver.hxx:29-400):
           -> End -> RegisterPrimal -> best primal available.
 
 The engine runs on the solver's ``device`` (the card unless the caller
-passes ``device="cpu"``) in its ``dtype``.  Tightening
+passes ``device="cpu"``) in its ``dtype``, its passes captured as CUDA
+graphs with ``use_jit`` (the default, as in the JAX package; every engine
+the solver builds captures anew, and ``n_captures`` and ``capture_seconds``
+count them beside ``n_engine_builds``).  Tightening
 grows the factor graph: additions that are triplets on existing pairwise
 or edge factors go into the bucketed side passes of ``aux_tighten``
 (``self.aux``, run after every engine pass); anything else rebuilds the
@@ -47,7 +50,7 @@ class Solver:
                  tree_decomposition: "list | None" = None,
                  tree_decomposition_begin: "int | None" = None,
                  tree_layout: str = "zero_sum",
-                 device="cuda", dtype: "torch.dtype | None" = None):
+                 device="cuda", dtype: "torch.dtype | None" = None, use_jit: bool = True):
         if exact_rounding not in (None, "ilp", "combilp"):
             raise ValueError(f"exact_rounding {exact_rounding!r}: None, 'ilp' or 'combilp'")
         self.graph = FactorGraph()
@@ -77,6 +80,7 @@ class Solver:
         self._tree_state: "dict | None" = None
         self.device = entry_device(device)
         self.dtype = dtype
+        self.use_jit = use_jit
         self.constructors: list[Any] = []
         self.engine: "Engine | None" = None
         self.lower_bound_: float = float("-inf")
@@ -85,8 +89,10 @@ class Solver:
         # incremental tightening (aux_tighten): absorbable triplet additions
         # (MRF ternary or multicut triplets) go into bucketed side passes
         # instead of a full engine rebuild
-        self.aux = AuxPasses()
+        self.aux = AuxPasses(use_jit=use_jit)
         self.n_engine_builds = 0
+        # captures of the engines built before the current one
+        self._old_captures = (0, 0.0)
 
     def add_constructor(self, ctor_cls, **kwargs):
         """GetProblemConstructor analogue (solver.hxx:111-118)."""
@@ -94,15 +100,31 @@ class Solver:
         self.constructors.append(c)
         return c
 
+    @property
+    def n_captures(self) -> int:
+        """Graphs captured (direct first calls on the CPU) by every engine
+        this solver built and by its aux passes."""
+        cur = self.engine.jit.stats()["captures"] if self.engine is not None else 0
+        return self._old_captures[0] + cur + self.aux.graph_stats()["captures"]
+
+    @property
+    def capture_seconds(self) -> float:
+        """Warm-up and capture seconds of those graphs."""
+        cur = self.engine.jit.stats()["capture_s"] if self.engine is not None else 0.0
+        return self._old_captures[1] + cur + self.aux.graph_stats()["capture_s"]
+
     # ------------------------------------------------------------------
     def build_engine(self) -> Engine:
         old = self.engine
         self.engine = Engine(self.graph, schedule_mode=self.schedule_mode,
                              update_mode=self.reparametrization_type,
                              inner_iteration=self.inner_iteration,
-                             device=self.device, dtype=self.dtype)
+                             device=self.device, dtype=self.dtype, use_jit=self.use_jit)
         self.n_engine_builds += 1
         if old is not None:
+            st = old.jit.stats()
+            self._old_captures = (self._old_captures[0] + st["captures"],
+                                  self._old_captures[1] + st["capture_s"])
             # carry reparametrized duals over: old rows are a prefix of the
             # new blocks and old padded lanes stay padded.  The new blocks
             # are fresh uploads, so writing into them leaves the old state
@@ -158,7 +180,7 @@ class Solver:
         if ts is None:
             dec = GeneralTreeDecomposition(self.graph, self.tree_decomposition,
                                            layout=self.tree_layout, device=self.device,
-                                           dtype=self.engine.dtype)
+                                           dtype=self.engine.dtype, use_jit=self.use_jit)
             dec.load_duals(self.engine)
             ts = self._tree_state = {
                 "dec": dec, "w": dec.zeros_like_w(), "k": 0,

@@ -20,6 +20,13 @@ returns the first minimum on ties, as ``jnp.argmin`` does.  The cover is
 host code, copied from the JAX package with its iteration over
 ``set(mrf.pairwise.keys())``: the port's ``MrfConstructor`` builds the same
 keys, so it gives the same chains.
+
+With ``use_jit`` (the default, as in the JAX package) ``solve`` and
+``project`` run through ``capture.Graphs``: each is one CUDA graph on the
+card (the solve's Viterbi loop becomes one launch), direct calls with the
+same buffer logic on the CPU.  The host loops around them stay outside
+the graphs: the float line search of ``fw_map`` and the steps of
+``subgradient_ascent``.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import functools
 import numpy as np
 import torch
 
+from .capture import Graphs
 from .config import entry_device, real_dtype
 from .factors.potts import PAIRWISE_POTTS
 from .factors.simplex import PAIRWISE_SIMPLEX, UNARY_SIMPLEX
@@ -57,11 +65,13 @@ class ChainDecomposition:
     group_size: torch.Tensor     # [n_vars+1] copies per group (pads -> 1)
     chains: list                 # list of [var ids] per tree
     mrf: "MrfConstructor | None" = None
+    use_jit: bool = True         # capture solve and project as CUDA graphs
 
     # ------------------------------------------------------------------
     @classmethod
     def from_mrf(cls, mrf: MrfConstructor, device="cuda",
-                 dtype: "torch.dtype | None" = None) -> "ChainDecomposition":
+                 dtype: "torch.dtype | None" = None,
+                 use_jit: bool = True) -> "ChainDecomposition":
         """The greedy chain cover of ``mrf`` as blocks on ``device`` (the
         card unless the caller asks for the CPU)."""
         device = entry_device(device)
@@ -155,7 +165,17 @@ class ChainDecomposition:
                    pairwise=torch.as_tensor(pair).to(device, dtype),
                    var_of=var_of, n_vars=n, n_labels=L,
                    group_index=torch.as_tensor(group, device=device),
-                   group_size=torch.as_tensor(gsize, device=device), chains=chains, mrf=mrf)
+                   group_size=torch.as_tensor(gsize, device=device), chains=chains, mrf=mrf,
+                   use_jit=use_jit)
+
+    @functools.cached_property
+    def jit(self) -> Graphs:
+        """The captured ``solve`` and ``project`` (``capture.Graphs``)."""
+        return Graphs(self.unary.device, enabled=self.use_jit, name="ChainDecomposition")
+
+    @functools.cached_property
+    def _graphed(self) -> tuple:
+        return self.jit.jit(self._solve_impl, "solve"), self.jit.jit(self._project_impl, "project")
 
     # ------------------------------------------------------------------
     def project(self, lam: torch.Tensor) -> torch.Tensor:
@@ -165,6 +185,9 @@ class ChainDecomposition:
         by ``index_add_`` (an unfixed order on CUDA) or a reduction (another
         order on each device): the ascent's argmins follow one path on
         every device and in every run."""
+        return self._graphed[1](lam)
+
+    def _project_impl(self, lam: torch.Tensor) -> torch.Tensor:
         T, V, L = lam.shape
         flat = torch.cat([lam.reshape(T * V, L), lam.new_zeros((1, L))])
         copies = self._copies
@@ -202,6 +225,9 @@ class ChainDecomposition:
         track_solution_down, tree_decomposition.hxx:107-161).
 
         Returns (bound_per_tree [T], argmin labels [T, V] int32)."""
+        return self._graphed[0](lam)
+
+    def _solve_impl(self, lam: torch.Tensor):
         u = self.unary + lam
         pw = self.pairwise
         T, V, L = u.shape

@@ -26,9 +26,12 @@ factors_messages.hxx:1553-1570) is a sequence of depth-levelled batched
 marginal shifts (all messages whose child sits at depth d fire together);
 the downward solution tracking (``track_solution_down``,
 factors_messages.hxx:1573-1602) reuses the message types' batched
-``propagate_primal_*``.  The JAX package jits the whole solve; here it runs
-eagerly, one group of ops per depth level, so on the card a deep tree is
-host-bound.  Subgradients in dual coordinates are ``torch.autograd.grad``
+``propagate_primal_*``.  The JAX package jits the whole solve; here, with
+``use_jit`` (the default), the solve runs through ``capture.Graphs``: one
+CUDA graph on the card that holds every depth level's ops, a direct call
+with the same buffer logic on the CPU (``load_duals`` drops the graph, whose
+constants it replaces).  The inner engine runs eagerly (``use_jit=False``,
+as in the JAX package): only its blocks and reductions are used.  Subgradients in dual coordinates are ``torch.autograd.grad``
 of the (linear) primal evaluation with the dual blocks as leaves: the
 generic ``FactorTypeAdapter::subgradient`` (LP_MP.h:78-79) for every factor
 type at once.
@@ -40,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .capture import Graphs
 from .config import PAD_COST
 from .engine import Engine, _gather
 from .graph import FactorGraph, MessageRef
@@ -98,7 +102,7 @@ class GeneralTreeDecomposition:
     """Lagrangean decomposition of a FactorGraph into arbitrary trees."""
 
     def __init__(self, graph: FactorGraph, trees: list, layout: str = "zero_sum",
-                 device="cuda", dtype: "torch.dtype | None" = None):
+                 device="cuda", dtype: "torch.dtype | None" = None, use_jit: bool = True):
         assert layout in ("zero_sum", "star", "fwmap", "quadratic")
         self.layout = layout
         n_orig = graph.n_factors
@@ -182,8 +186,11 @@ class GeneralTreeDecomposition:
 
         # the Engine gives type-batched blocks, message index arrays and the
         # bound and evaluation reductions; its sweep schedule is unused here
-        self.eng = eng = Engine(cg, schedule_mode="coloring", device=device, dtype=dtype)
+        self.eng = eng = Engine(cg, schedule_mode="coloring", device=device, dtype=dtype,
+                                use_jit=False)
         self.device, self.dtype = eng.device, eng.dtype
+        self.jit = Graphs(self.device, enabled=use_jit, name="GeneralTreeDecomposition")
+        self._solve_fn = self.jit.jit(self._solve_impl, "solve")
 
         def idx(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64), device=self.device)
@@ -392,8 +399,15 @@ class GeneralTreeDecomposition:
     # ------------------------------------------------------------------
     def solve(self, lam=None):
         """Returns (bound_per_tree [T], primal dict, swept state)."""
+        return self._solve(lam, with_state=True)
+
+    def _solve(self, lam, with_state: bool):
+        """``solve``, its swept state None unless ``with_state``."""
         if lam is None:
             lam = self.zeros_like_dual()
+        return self._solve_fn(lam, with_state=with_state)
+
+    def _solve_impl(self, lam, with_state: bool):
         eng = self.eng
         # add multipliers onto the divided base duals
         state = {name: dict(blk) for name, blk in self.base.items()}
@@ -442,10 +456,10 @@ class GeneralTreeDecomposition:
                 else:
                     prim[rn] = mt.propagate_primal_l2r(prim[ln], prim[rn], lidx, ridx, data)
             primal_at(self._depth_rows[d])
-        return bound, prim, state
+        return bound, prim, state if with_state else None
 
     def decomposition_lower_bound(self, lam=None) -> float:
-        bound, _, _ = self.solve(lam)
+        bound, _, _ = self._solve(lam, with_state=False)
         return float(torch.sum(bound))
 
     # ------------------------------------------------------------------
@@ -476,7 +490,7 @@ class GeneralTreeDecomposition:
     # ------------------------------------------------------------------
     def grad_at(self, w):
         """(bound, layout subgradient, its squared norm) at multipliers w."""
-        bound, prim, _ = self.solve(self.to_dual(w))
+        bound, prim, _ = self._solve(self.to_dual(w), with_state=False)
         g = self.pullback(self._indicator(prim))
         return float(torch.sum(bound)), g, float(_tdot(g, g))
 
@@ -512,7 +526,7 @@ class GeneralTreeDecomposition:
                     for name, blk in self.base.items()}
 
         def oracle(lam):
-            bound, prim, _ = self.solve(lam)
+            bound, prim, _ = self._solve(lam, with_state=False)
             return torch.sum(bound), self._indicator(prim)
 
         # start from the zero-multiplier tree optimum
@@ -574,6 +588,8 @@ class GeneralTreeDecomposition:
                 src = state[name][k].to(self.device, v.dtype)[src_rows]
                 src = _fit(src, v.shape[1:], PAD_COST)
                 blk[k] = torch.where(v.abs() >= PAD_COST / 2, v, src / _rows(m, v).to(v.dtype))
+        # the solve's graph read the replaced base duals as constants
+        self.jit.reset()
 
     # ------------------------------------------------------------------
     def write_back_reparametrization(self, engine: Engine, lam=None) -> None:

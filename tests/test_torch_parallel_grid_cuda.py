@@ -52,10 +52,16 @@ def test_four_shards_match_dense_kernel_path(cuda, mode):
     sharded = ShardedGridPotts(u, hc, vc, devices=[cuda] * 4,
                                dtype=torch.float32).run_fast(9, mode)
     counts = gk.launch_counts()
+    # each sweep from one window set into the other is a captured graph
+    # (use_jit) whose warm-up launches once: per shard, the schedule's
+    # launches and one more per graph (anisotropic: the prologue, the
+    # 2-round sweep from either set, the 1-round sweep; uniform: two phase
+    # tuples from either set)
     if mode == "anisotropic":
-        assert counts["phase_update_sharded"] == 4 and counts["round_update_sharded"] == 4 * 5
+        assert counts["phase_update_sharded"] == 4 * (1 + 1)
+        assert counts["round_update_sharded"] == 4 * (5 + 3)
     else:
-        assert counts["phase_update_sharded"] == 4 * 4 * 9
+        assert counts["phase_update_sharded"] == 4 * (4 * 9 + 4)
     ds = sharded.dense_state()
     for k in gk.STATE_KEYS:
         assert torch.equal(ds[k], dense.state[k]), k
