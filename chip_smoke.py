@@ -104,10 +104,24 @@ seconds and pool MB, and the captured state within 1e-5 (1 + max|x|) and
 its bound within 1e-6 relative (multicut 1e-5) of the eager one after 10
 calls.
 
+Then pull: the structured pull pass, Engine(pull=True) beside
+Engine(pull=False) on the captured path, on bench.py's generic grid
+(1000x1000, L=4, pairs horizontal then vertical: every slot strided), the
+engine grid above (pairs in per-cell order: every slot gathers), the 100k
+chain, qap_32x32_3000quadratic and the multicut with its 500 triplets:
+slots, strided slots and fallback lanes of the plans and their build
+seconds; where every slot is strided, two fresh pull engines bit-equal
+after 10 passes; after 20 passes the pull bound within 1e-5 relative of
+the scatter bound and the state within 1e-5 (1 + max|x|), no grid-kernel
+launch; ms per pass captured (CUDA events, median of 3 in turns) and
+eager, host enqueue, kernels per pass and pool MB.  The counting messages
+of tomography_100chains_64vars_counting have no pull hooks: pull=True must
+raise, pull="auto" runs the scatter pass.
+
 The last lines are JSON records of the engine path, of tightening, of the
 two models, of the sharded engine, the trees and the tree Solver, of the
-checkpoint, the oracles, the command line and the jit phase, a JSON record
-of the kernels, and {"ok": true, "device": {...}}.  Any failure
+checkpoint, the oracles, the command line, the jit and the pull phases, a
+JSON record of the kernels, and {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at
 once.
 """
@@ -138,6 +152,7 @@ from lp_mp_tpu_torch import (ChainDecomposition, Direction, DiscreteTomographyCo
                              solve_lp_relaxation)
 from lp_mp_tpu_torch.capture import flatten
 from lp_mp_tpu_torch.convert import host_array
+from lp_mp_tpu_torch.engine_pull import pull_stats
 from lp_mp_tpu_torch.kernel_check import (RTOL, check_grid_kernels, check_phase_v1,
                                           check_replays, check_sharded_grid_kernels)
 from lp_mp_tpu_torch.models.grid_potts import grid_potts_edges
@@ -213,6 +228,9 @@ JAX_ORACLES = {"lp": -150.4090523654313, "ilp": -133.898193359375, "n_vars": 980
 CHECKPOINT_PASSES = 5
 # jit: calls of each path, eager and captured from one state, before their states are compared
 JIT_PASSES = 10
+# pull: passes of Engine(pull=True) and Engine(pull=False) before they are compared, and of
+# two fresh pull engines before their states must be bit-equal (all slots strided)
+PULL_PASSES, PULL_RERUN_PASSES = 20, 10
 # command line: mrf_grid24 as UAI text, qap_16x16 in the Torresani format and the
 # multicut_grid40 edges, through python -m lp_mp_tpu_torch; the JAX package's cli.main on
 # the same text on the CPU in float32 (tests/test_torch_model_constants.py recomputes them).
@@ -597,6 +615,19 @@ def grid_pairs(rows: int, cols: int, diagonals: bool = False, anti: bool = False
     if anti:
         parts.append((idx[:-1, 1:], idx[1:, :-1]))
     return np.concatenate([np.stack([a.ravel(), b.ravel()], axis=1) for a, b in parts])
+
+
+def generic_grid_graph() -> FactorGraph:
+    """bench.py's generic_grid (bench.py:260-331): the 1000x1000, L=4 Potts
+    grid with normal unaries and weights U(0.5, 1.5) from default_rng(1),
+    pairs horizontal then vertical (so every pull slot is strided)."""
+    rng = np.random.default_rng(1)
+    g = FactorGraph()
+    mrf = MrfConstructor(g)
+    mrf.add_unary_factors(rng.normal(size=(H * W, L)))
+    pairs = grid_pairs(H, W)
+    mrf.add_potts_factors(pairs, L, rng.uniform(0.5, 1.5, size=len(pairs)))
+    return g
 
 
 def multicut_150k_instance():
@@ -1578,6 +1609,138 @@ def phase_jit(card: str, ec: Engine, eg: Engine, g_mc: FactorGraph, sh_grid: Sha
     return out
 
 
+def pull_totals(e: Engine) -> dict:
+    """pull_stats of both directions summed: slots, strided slots, and the
+    lanes of the slots that gather."""
+    out = {"slots": 0, "strided": 0, "fallback_lanes": 0}
+    for d in Direction:
+        for v in pull_stats(e, d).values():
+            out["slots"] += v["slots"]
+            out["strided"] += v["strided"]
+            out["fallback_lanes"] += sum(n for pat, _, n in v["patterns"] if pat is None)
+    return out
+
+
+def eager_turns(engines: dict, step) -> tuple:
+    """ms per ``step`` of each engine with its captured graphs off (use_jit's
+    eager path, CUDA events over one call, median of 3 in turns) and its
+    host enqueue (one call: an eager pull pass of the multicut takes a
+    second)."""
+    for e in engines.values():
+        e.jit.enabled = False
+    try:
+        fns = {k: (lambda e=e: step(e)) for k, e in engines.items()}
+        return in_turns(fns, reps=1), {k: host_ms(fn, reps=1) for k, fn in fns.items()}
+    finally:
+        for e in engines.values():
+            e.jit.enabled = True
+
+
+def pull_model(tag: str, g: FactorGraph, card: str, **kw) -> dict:
+    """Engine(pull=True) beside Engine(pull=False) on ``g``: plan totals and
+    build seconds, bit-equal reruns of two fresh pull engines where every
+    slot is strided, the bound and state after PULL_PASSES passes, and ms
+    per pass captured and eager, host enqueue, kernels per pass and pool MB.
+    The pull passes launch no hand-written kernel."""
+    step = lambda e: e.compute_pass("anisotropic")           # noqa: E731
+    sc, sc_build = timed_engine(g, **kw)
+    pu, pu_build = timed_engine(g, pull=True, **kw)
+    tot = pull_totals(pu)
+    print(f"pull: {tag}: {g.n_factors} factors, {pu.schedule_mode}, phases "
+          f"{len(pu.phases[Direction.forward])}; pull plans: {tot['slots']} slots, "
+          f"{tot['strided']} strided, {tot['fallback_lanes']} fallback lanes, built in "
+          f"{pu.pull_plan_s:.2f} s; Engine build pull {pu_build:.2f} s, scatter {sc_build:.2f} s")
+    reset_launch_counts()
+    bit_equal = None
+    if tot["strided"] == tot["slots"]:
+        pu2, _ = timed_engine(g, pull=True, **kw)
+        for _ in range(PULL_RERUN_PASSES):
+            step(pu)
+            step(pu2)
+        a, b = flatten(pu.state)[0], flatten(pu2.state)[0]
+        bit_equal = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"pull: {tag}: two fresh pull engines after {PULL_RERUN_PASSES} passes: "
+              f"bit-equal {bit_equal}")
+        if not bit_equal:
+            fail(f"pull: {tag}: every slot is strided, yet two pull engines differ")
+        del pu2, a, b
+    for _ in range(PULL_RERUN_PASSES if bit_equal is not None else 0, PULL_PASSES):
+        step(pu)
+    for _ in range(PULL_PASSES):
+        step(sc)
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"pull: {tag}: the engines launched grid kernels: {counts}")
+    lb_p, lb_s = pu.lower_bound(), sc.lower_bound()
+    err, scale = state_diff(sc.state, pu.state)
+    print(f"pull: {tag}: after {PULL_PASSES} anisotropic passes lb pull {lb_p:.6f}, scatter "
+          f"{lb_s:.6f}, rel diff {rel(lb_p, lb_s):.3e} (limit 1e-5); max state diff {err:.3e} "
+          f"(limit {1e-5 * scale:.3e})")
+    if not (rel(lb_p, lb_s) <= 1e-5 and err <= 1e-5 * scale):
+        fail(f"pull: {tag}: the pull pass differs from the scatter pass")
+    engines = {"scatter": sc, "pull": pu}
+    t = in_turns({k: (lambda e=e: step(e)) for k, e in engines.items()}, reps=3)
+    host = {k: host_ms(lambda e=e: step(e), reps=3) for k, e in engines.items()}
+    prof = {k: profile_pass(lambda e=e: step(e)) for k, e in engines.items()}
+    te, he = eager_turns(engines, step)
+    pool = {k: e.jit.stats()["pool_mb"] for k, e in engines.items()}
+    if any(launch_counts().values()):
+        fail(f"pull: {tag}: the engines launched grid kernels: {launch_counts()}")
+    print(f"pull: {tag}: ms per pass captured scatter {t['scatter']:.3f} / pull {t['pull']:.3f} "
+          f"(median of 3 in turns, CUDA events); eager {te['scatter']:.3f} / {te['pull']:.3f}; "
+          f"host enqueue captured {host['scatter']:.3f} / {host['pull']:.3f}, eager "
+          f"{he['scatter']:.3f} / {he['pull']:.3f} ms; kernels per pass {prof['scatter']['kernels']}"
+          f" / {prof['pull']['kernels']}, device busy {prof['scatter']['busy_ms']:.3f} / "
+          f"{prof['pull']['busy_ms']:.3f} ms; pool {pool['scatter']:.1f} / {pool['pull']:.1f} MB "
+          f"on {card}")
+    return {"factors": g.n_factors, "schedule_mode": pu.schedule_mode,
+            "phases": len(pu.phases[Direction.forward]), **tot, "plan_s": pu.pull_plan_s,
+            "build_s": pu_build, "scatter_build_s": sc_build, "bit_equal_reruns": bit_equal,
+            "lb": lb_p, "lb_scatter": lb_s, "state_diff": err, "state_limit": 1e-5 * scale,
+            **{f"{k}_ms": t[k] for k in t}, **{f"{k}_eager_ms": te[k] for k in te},
+            **{f"{k}_host_ms": host[k] for k in host},
+            **{f"{k}_eager_host_ms": he[k] for k in he},
+            **{f"{k}_kernels": prof[k]["kernels"] for k in prof},
+            **{f"{k}_busy_ms": prof[k]["busy_ms"] for k in prof},
+            **{f"{k}_pool_mb": pool[k] for k in pool}}
+
+
+def phase_pull(card: str, g_grid: FactorGraph, g_chain: FactorGraph, g_mc: FactorGraph) -> dict:
+    """The structured pull pass (Engine(pull=True)) against the scatter pass
+    on bench.py's generic grid (every slot strided), the engine grid (pairs
+    in per-cell order: every slot gathers), the 100k chain,
+    qap_32x32_3000quadratic and the multicut with its 500 triplets; then
+    tomography_100x64, whose counting messages have no pull hooks: pull=True
+    must raise, pull="auto" runs the scatter pass."""
+    out = {"generic_grid": pull_model(f"generic grid {H}x{W}", generic_grid_graph(), card,
+                                      schedule_mode="auto")}
+    out["grid"] = pull_model(f"engine grid {H}x{W}", g_grid, card, schedule_mode="coloring")
+    out["chain"] = pull_model(f"chain {CHAIN_N}", g_chain, card, schedule_mode="auto")
+    g = FactorGraph()
+    GraphMatchingConstructor(g, construction="left").construct(qap_input(32, 3000, seed=4))
+    out["qap_32x32"] = pull_model("qap_32x32", g, card, schedule_mode="auto")
+    out["multicut_150k"] = pull_model("multicut 149k + 500 triplets", g_mc, card,
+                                      schedule_mode="coloring")
+    g = FactorGraph()
+    tomography_chains(DiscreteTomographyConstructor(g), 100, 64, 3, seed=5)
+    try:
+        Engine(g, schedule_mode="auto", device="cuda", dtype=torch.float32, pull=True)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("pull: tomography_100x64: pull=True built an engine without pull hooks")
+    e = Engine(g, schedule_mode="auto", device="cuda", dtype=torch.float32, pull="auto")
+    lb0 = e.lower_bound()
+    e.compute_pass("anisotropic")
+    lb1 = e.lower_bound()
+    print(f"pull: tomography_100x64: pull=True refused ({refused}); pull='auto' runs the "
+          f"scatter pass ({e.pull=}): lb {lb0:.6f} -> {lb1:.6f}")
+    if "hooks" not in refused or e.pull or not lb1 >= lb0 - 1e-4 * abs(lb0):
+        fail(f"pull: tomography_100x64: refusal {refused!r}, auto pull {e.pull}, lb {lb0} -> {lb1}")
+    out["tomography_100x64"] = {"pull_true": refused, "auto_pull": e.pull, "lb": lb1}
+    return out
+
+
 def phase_checkpoint(card: str, e: Engine) -> dict:
     """A checkpoint of the 1000x1000, L=4 engine grid: save, 5 more passes,
     load: the bound and every state tensor as saved, bit for bit, and the
@@ -1785,7 +1948,13 @@ def main() -> None:
     jit = phase_jit(card, ec, eg, g_mc, sh_grid, dec, lam)
     jit.update(card=card, phase_s=time.perf_counter() - t1)
     print(f"jit: phase {jit['phase_s']:.1f} s")
-    del g_grid, g_mc, eg, ec, sh_grid, dec
+    g_chain = ec.graph
+    del eg, ec, sh_grid, dec
+    t1 = time.perf_counter()
+    pull = {**phase_pull(card, g_grid, g_chain, g_mc), "card": card}
+    pull["phase_s"] = time.perf_counter() - t1
+    print(f"pull: phase {pull['phase_s']:.1f} s")
+    del g_grid, g_mc, g_chain
     t1 = time.perf_counter()
     oracles = {**phase_oracles(card), "card": card}
     oracles["phase_s"] = time.perf_counter() - t1
@@ -1805,6 +1974,7 @@ def main() -> None:
     print(json.dumps({"oracles": oracles}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"jit": jit}))
+    print(json.dumps({"pull": pull}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

@@ -36,13 +36,25 @@ rebinds ``state`` to new tensors.  On CUDA, ``index_add`` sums duplicate
 indices with float atomics in an order that varies from run to run, so
 results on the card agree within a tolerance, not bit for bit.
 
+``pull=True`` runs each direction's dual pass as the structured pull pass
+(``engine_pull``): per message type and direction, slots of at most one
+message per receiving row whose sender rows are read through strided views
+and whose contributions are added in place on views of clones of the
+state, with a row gather and ``index_add_`` only where a slot fits no
+strided pattern.  It needs ``update_mode="shared"`` and the ``pull_left``/
+``pull_right`` hooks on every scheduled message type, and raises a
+``ValueError`` naming what is missing; primal, restricted, partition and
+residual or adaptive passes stay on the scatter path.  ``pull="auto"`` (the
+default) and ``pull=False`` run the scatter pass: the JAX package's
+``auto`` picks pull only on the TPU backend.
+
 Not ported: the ``lax.scan`` pass (it keeps XLA's compile time O(1) in the
-phase count; a CUDA graph records the unrolled pass) and the scatter-free
-pull pass (``engine_pull``, a workaround for slow TPU scatter).
+phase count; a CUDA graph records the unrolled pass).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Sequence
 
 import numpy as np
@@ -163,6 +175,7 @@ class _MsgBlock:
     data: dict             # static per-message data (device tensors)
     lfid: np.ndarray       # [M] global factor id of left endpoint
     rfid: np.ndarray       # [M] global factor id of right endpoint
+    chunk_of: np.ndarray   # [M] graph message chunk (engine_pull slots)
 
 
 @dataclasses.dataclass
@@ -213,11 +226,14 @@ class _DevPlan:
 class Engine:
     """Compiled model + passes over it, on ``device`` in ``dtype``
     (default: ``config.real_dtype(device)``), captured as CUDA graphs with
-    ``use_jit`` (module docstring)."""
+    ``use_jit``, with the scatter or the pull pass (module docstring)."""
 
     def __init__(self, graph: FactorGraph, schedule_mode: str = "wavefront",
                  update_mode: str = "shared", inner_iteration: int = 5,
-                 device="cuda", dtype: "torch.dtype | None" = None, use_jit: bool = True):
+                 device="cuda", dtype: "torch.dtype | None" = None, use_jit: bool = True,
+                 pull: "str | bool" = "auto"):
+        if pull not in (True, False, "auto"):
+            raise ValueError(f"pull must be True, False or 'auto', not {pull!r}")
         self.device = entry_device(device)
         self.dtype = dtype or real_dtype(self.device)
         if schedule_mode == "auto":
@@ -301,7 +317,9 @@ class Engine:
                 lidx=self._index(self.f_local[lfid]), ridx=self._index(self.f_local[rfid]),
                 gids=np.concatenate(d["g"]),
                 data=block_from_numpy(_concat_blocks(d["built"]), self.device, self.dtype),
-                lfid=lfid, rfid=rfid)
+                lfid=lfid, rfid=rfid,
+                chunk_of=np.repeat(np.arange(len(d["g"]), dtype=np.int64),
+                                   [len(g) for g in d["g"]]))
         self.n_messages = graph._n_messages
 
         # ---- per-factor send ranks ------------------------------------------
@@ -388,9 +406,34 @@ class Engine:
                 self._unupdated_rows[tname] = self._index(rows)
 
         self._weights_cache: dict = {}
-        self._pass_fns = {d: self._make_pass(self._dev_plans[d], primal=False,
-                                             update_mode=update_mode)
-                          for d in self._dev_plans}
+        self._weights_cache_np: dict = {}   # (mode, direction) -> host weights (pull folds)
+        self._pull_folds: dict = {}         # direction -> fold callable
+        self._pull_w_cache: dict = {}       # (mode, direction) -> folded lane weights
+        self.pull_plan_s = 0.0              # host seconds spent on the pull plans
+        if pull is True:
+            # explicit opt-in: validate instead of running scatter in silence
+            # (pull builds shared-semantics passes from the pull_* hooks)
+            if update_mode != "shared":
+                raise ValueError(f"pull=True requires update_mode='shared' (got "
+                                 f"{update_mode!r}: pull passes have no residual resends "
+                                 f"or adaptive reweighting)")
+            missing = sorted({n for d in self.plans for n in self._pull_missing(self.plans[d])})
+            if missing:
+                raise ValueError(f"pull=True requires pull_left/pull_right hooks on every "
+                                 f"scheduled message type; {missing} have none")
+        self._pass_fns = {}
+        pull_ops: dict = {}
+        for d in self._dev_plans:
+            if pull is True:
+                from .engine_pull import make_pull_pass
+                t = time.perf_counter()
+                self._pass_fns[d], self._pull_folds[d] = make_pull_pass(self, d, pull_ops)
+                self.pull_plan_s += time.perf_counter() - t
+            else:
+                self._pass_fns[d] = self._make_pass(self._dev_plans[d], primal=False,
+                                                    update_mode=update_mode)
+        self.pull = bool(self._pull_folds)
+        self._pull_ops = pull_ops if self.pull else None
         self._primal_fns = {d: self._make_pass(self._dev_plans[d], primal=True)
                             for d in self._dev_plans}
         self._restricted_fns: dict = {}
@@ -526,6 +569,24 @@ class Engine:
                 resend=[[(sel(n, i), fl) for n, i, fl in group]
                         for group in plan.resend]))
         return out
+
+    # ------------------------------------------------------------------
+    # pull pass (scatter-free hot path; see registry pull_* contract)
+    # ------------------------------------------------------------------
+    def _pull_missing(self, plans: Sequence[_PhasePlan]) -> list[str]:
+        """Scheduled message types without their own pull hooks."""
+        missing = set()
+        for plan in plans:
+            for name, *_ in (*plan.recv_left, *plan.recv_right,
+                             *plan.send_left, *plan.send_right):
+                mt = type(self.msgs[name].mtype)
+                if (mt.pull_left is MessageType.pull_left
+                        or mt.pull_right is MessageType.pull_right):
+                    missing.add(name)
+        return sorted(missing)
+
+    def _pull_supported(self, plans: Sequence[_PhasePlan]) -> bool:
+        return not self._pull_missing(plans)
 
     # ------------------------------------------------------------------
     def _recv_scales(self, plans: Sequence[_DevPlan]) -> dict:
@@ -833,7 +894,28 @@ class Engine:
                 typed, self.n_messages, self.updated)
             assert sched.omega_valid_arrays(w, self.n_factors, typed)
             self._weights_cache[key] = self._weights_to_dict(w)
+            if self._pull_folds:
+                # host copy for the pull pass's weight folding
+                self._weights_cache_np[key] = {
+                    name: {"omega_left": w.omega_left[blk.gids],
+                           "omega_right": w.omega_right[blk.gids],
+                           "recv_left": w.recv_left[blk.gids],
+                           "recv_right": w.recv_right[blk.gids]}
+                    for name, blk in self.msgs.items()}
         return self._weights_cache[key]
+
+    def _pass_weights(self, mode, direction: Direction):
+        """Argument for the direction's dual pass: the per-name weight dict,
+        or for pull directions the folded per-phase/op/run lane weights
+        (engine_pull.fold_weights), uploaded once per (mode, direction)."""
+        if direction not in self._pull_folds:
+            return self.weights(mode, direction)
+        mode = ReparametrizationMode.convert(mode)
+        key = (mode, direction)
+        if key not in self._pull_w_cache:
+            self.weights(mode, direction)
+            self._pull_w_cache[key] = self._pull_folds[direction](self._weights_cache_np[key])
+        return self._pull_w_cache[key]
 
     # ------------------------------------------------------------------
     # public API (Solver-facing, mirrors LP<FMC>)
@@ -846,13 +928,14 @@ class Engine:
         key = (kind, mode, direction)
         g = self._graphed.get(key)
         if g is None:
-            w = self.weights(mode, direction)
             if kind == "dual":
+                w = self._pass_weights(mode, direction)
                 fn = self._pass_fns[direction]
 
                 def run(state):
                     return fn(state, w), None
             else:
+                w = self.weights(mode, direction)
                 if kind == "restricted" and direction not in self._restricted_fns:
                     self._restricted_fns[direction] = self._make_pass(
                         self._dev_plans[direction], primal=True, restricted=True)

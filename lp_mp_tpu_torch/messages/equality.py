@@ -12,8 +12,9 @@ min-marginal is the scalar ``c[li] - min_{k != li} c[k]`` (min_except,
 vector.hxx:315-323) and reparametrization touches one entry per side.
 Every candidate of a left node is its own message, so one phase repeats a
 row index; the (row, entry) pairs are distinct, and the scatter is an
-out-of-place ``index_put(..., accumulate=True)``.  Not ported: the pull
-hooks (the pull pass is not ported).
+out-of-place ``index_put(..., accumulate=True)``.  The pull hooks of the
+pull pass (``Engine(pull=True)``) put the scalar on its entry of a
+one-hot row.
 """
 from __future__ import annotations
 
@@ -71,6 +72,17 @@ class EqualityMessage(MessageType):
 
     def repam_right(self, costs, idx, delta, data):
         return {**costs, "c": costs["c"].index_put((idx, data["ri"]), delta, accumulate=True)}
+
+    @staticmethod
+    def _one_hot(delta, entry, width):
+        lanes = torch.arange(width, device=delta.device)[None, :]
+        return torch.where(lanes == entry[:, None], delta[:, None], delta.new_zeros(()))
+
+    def pull_left(self, delta, data, costs):
+        return {"c": self._one_hot(delta, data["li"], costs["c"].shape[1])}
+
+    def pull_right(self, delta, data, costs):
+        return {"c": self._one_hot(delta, data["ri"], costs["c"].shape[1])}
 
     # -- primal --------------------------------------------------------------
     def propagate_primal_l2r(self, left_primal, right_primal, lidx, ridx, data):

@@ -13,8 +13,8 @@ Static per-message data (wheel slots, pattern permutations) is built as
 int64, the index type of ``torch.gather`` and of advanced indexing; the
 JAX package builds it as int32.  Every scatter is out of place
 (``index_add`` / ``index_put``, accumulating where indices may repeat).  The
-scatter-free pull hooks (``pull_left``/``pull_right``) of the JAX types
-serve the TPU pull pass, which the port does not have.
+pull hooks (``pull_left``/``pull_right``) give the same updates as dense
+per-message rows for the pull pass (``Engine(pull=True)``).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from ..config import MessageSchedule
 from ..factors.multicut import (MULTICUT_EDGE, MULTICUT_ODD_WHEEL, MULTICUT_TRIPLET,
                                 ODD_WHEEL_PATTERNS, TRIPLET_PATTERNS, device_table,
                                 wheel_k_type)
-from ..registry import RESTRICT_BIG, MessageType, mask_pad
+from ..registry import RESTRICT_BIG, MessageType, add_rows, mask_pad
 
 
 def _edge_restricted(base, x):
@@ -113,12 +113,17 @@ class _EdgePatternMessage(MessageType):
         return self._cut_minus_uncut(cz, _zero_penalty(e, c))
 
     def repam_left(self, costs, idx, delta, data):
-        return {**costs, "c": costs["c"].index_add(0, idx, delta[:, 0])}
+        return add_rows(costs, idx, self.pull_left(delta, data, costs))
 
     def repam_right(self, costs, idx, delta, data):
+        return add_rows(costs, idx, self.pull_right(delta, data, costs))
+
+    def pull_left(self, delta, data, costs):
+        return {"c": delta[:, 0]}
+
+    def pull_right(self, delta, data, costs):
         c = costs["c"]
-        add = delta[:, 0:1] * device_table(self._pat_col, c, c.dtype)[None, :]
-        return {**costs, "c": c.index_add(0, idx, add)}
+        return {"c": delta[:, 0:1] * device_table(self._pat_col, c, c.dtype)[None, :]}
 
     # -- primal ------------------------------------------------------------
     def _key(self):
@@ -225,6 +230,18 @@ class MulticutEdgeWheelKMessage(MessageType):
                                      torch.where(s >= k, d, zero), accumulate=True)
         return {**costs, "sp": sp, "rim": rim}
 
+    def pull_left(self, delta, data, costs):
+        return {"c": delta[:, 0]}
+
+    def pull_right(self, delta, data, costs):
+        k = self.k
+        s = data["slot"][:, None]
+        d = delta[:, 0:1]
+        lanes = torch.arange(k, device=d.device)[None, :]
+        zero = d.new_zeros(())
+        return {"sp": torch.where((s < k) & (lanes == s), d, zero),
+                "rim": torch.where((s >= k) & (lanes == s - k), d, zero)}
+
     # -- primal ----------------------------------------------------------
     def propagate_primal_l2r(self, left_primal, right_primal, lidx, ridx, data):
         e = right_primal["e"].index_put((ridx, data["slot"]), left_primal["x"][lidx])
@@ -307,6 +324,15 @@ class MulticutTripletWheelKMessage(MessageType):
         dw = torch.gather(delta, 1, data["pw"])                           # wheel order
         tri = costs["tri"].index_put((idx, data["slot"]), dw, accumulate=True)
         return {**costs, "tri": tri}
+
+    def pull_left(self, delta, data, costs):
+        return {"c": delta}
+
+    def pull_right(self, delta, data, costs):
+        dw = torch.gather(delta, 1, data["pw"])                           # wheel order
+        karr = torch.arange(self.k, device=dw.device)[None, :, None]
+        return {"tri": torch.where(karr == data["slot"][:, None, None], dw[:, None, :],
+                                   dw.new_zeros(()))}
 
     # -- primal --------------------------------------------------------------
     def propagate_primal_l2r(self, left_primal, right_primal, lidx, ridx, data):

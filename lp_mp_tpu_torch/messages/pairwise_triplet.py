@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from ..config import MessageSchedule
 from ..factors.simplex import PAIRWISE_SIMPLEX, TERNARY_SIMPLEX
-from ..registry import RESTRICT_BIG, MessageType, mask_pad
+from ..registry import RESTRICT_BIG, MessageType, add_rows, mask_pad
 
 
 def _axis_penalty(like, axis, x):
@@ -74,15 +74,20 @@ class PairwiseTripletMessage(MessageType):
         return mask_pad(torch.amin(c + pen, dim=self.out_axis))
 
     def repam_left(self, costs, idx, delta, data):
-        c = costs["c"]
-        return {**costs, "c": c.index_add(0, idx, _fit2(delta, c.shape[1], c.shape[2]))}
+        return add_rows(costs, idx, self.pull_left(delta, data, costs))
 
     def repam_right(self, costs, idx, delta, data):
+        return add_rows(costs, idx, self.pull_right(delta, data, costs))
+
+    def pull_left(self, delta, data, costs):
+        c = costs["c"]
+        return {"c": _fit2(delta, c.shape[1], c.shape[2])}
+
+    def pull_right(self, delta, data, costs):
         c = costs["c"]
         dims = [c.shape[a] for a in self.pair]
         d = _fit2(delta, dims[0], dims[1]).unsqueeze(self.out_axis)
-        d = d.expand((-1,) + tuple(c.shape[1:]))
-        return {**costs, "c": c.index_add(0, idx, d)}
+        return {"c": d.expand((-1,) + tuple(c.shape[1:]))}
 
     # -- primal ------------------------------------------------------------
     def _keys(self):

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..config import MessageSchedule
 from ..factors.potts import PAIRWISE_POTTS, PairwisePottsType
 from ..factors.simplex import PAIRWISE_SIMPLEX, UNARY_SIMPLEX, _lane
-from ..registry import RESTRICT_BIG, MessageType, mask_pad
+from ..registry import RESTRICT_BIG, MessageType, add_rows, mask_pad
 
 
 def _valid_lanes(width: int, nl: torch.Tensor) -> torch.Tensor:
@@ -70,8 +70,10 @@ class _UnaryPairwiseBase(MessageType):
         return torch.where((x >= 0)[:, None], base + pen, base)
 
     def repam_left(self, costs, idx, delta, data):
-        c = costs["c"]
-        return {**costs, "c": c.index_add(0, idx, fit_width(delta, c.shape[1]))}
+        return add_rows(costs, idx, self.pull_left(delta, data, costs))
+
+    def pull_left(self, delta, data, costs):
+        return {"c": fit_width(delta, costs["c"].shape[1])}
 
     # -- primal ------------------------------------------------------------
     def _right_key(self):
@@ -144,13 +146,15 @@ class UnaryPairwiseMessage(_UnaryPairwiseBase):
         return torch.where((x_own >= 0)[:, None], mm + own_pen, mm)
 
     def repam_right(self, costs, idx, delta, data):
+        return add_rows(costs, idx, self.pull_right(delta, data, costs))
+
+    def pull_right(self, delta, data, costs):
         c = costs["c"]
         if self.side == 1:
             d = fit_width(delta, c.shape[1])[:, :, None]
         else:
             d = fit_width(delta, c.shape[2])[:, None, :]
-        d = d.expand(-1, c.shape[1], c.shape[2])
-        return {**costs, "c": c.index_add(0, idx, d)}
+        return {"c": d.expand(-1, c.shape[1], c.shape[2])}
 
 
 class UnaryPottsMessage(_UnaryPairwiseBase):
@@ -188,9 +192,11 @@ class UnaryPottsMessage(_UnaryPairwiseBase):
         return torch.where((x_own >= 0)[:, None], base + own_pen, base)
 
     def repam_right(self, costs, idx, delta, data):
+        return add_rows(costs, idx, self.pull_right(delta, data, costs))
+
+    def pull_right(self, delta, data, costs):
         key = "msg1" if self.side == 1 else "msg2"
-        slot = costs[key]
-        return {**costs, key: slot.index_add(0, idx, fit_width(delta, slot.shape[1]))}
+        return {key: fit_width(delta, costs[key].shape[1])}
 
 
 UNARY_PAIRWISE_1 = UnaryPairwiseMessage(1)

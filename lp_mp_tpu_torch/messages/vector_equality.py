@@ -7,7 +7,8 @@ the normalized cost ``c - min(c)``, i.e. the two factors must take the same
 label, and a send shifts all relative cost onto the other side.  This is the
 canonical coupling for tree decompositions over cloned factors
 (tree_decomposition.hxx:277-585).  Each repam is an out-of-place
-``index_add``.  Not ported: the pull hooks (the pull pass is not ported).
+``index_add``; the pull hooks (``Engine(pull=True)``) hand the delta on as
+it is.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from ..config import MessageSchedule
 from ..factors.simplex import UNARY_SIMPLEX
-from ..registry import MessageType, mask_pad
+from ..registry import MessageType, add_rows, mask_pad
 from .equality import condition_simplex
 
 
@@ -53,10 +54,16 @@ class VectorEqualityMessage(MessageType):
         return self._restricted(right_costs, right_primal)
 
     def repam_left(self, costs, idx, delta, data):
-        return {**costs, "c": costs["c"].index_add(0, idx, delta)}
+        return add_rows(costs, idx, self.pull_left(delta, data, costs))
 
     def repam_right(self, costs, idx, delta, data):
-        return {**costs, "c": costs["c"].index_add(0, idx, delta)}
+        return add_rows(costs, idx, self.pull_right(delta, data, costs))
+
+    def pull_left(self, delta, data, costs):
+        return {"c": delta}
+
+    def pull_right(self, delta, data, costs):
+        return {"c": delta}
 
     # -- primal --------------------------------------------------------------
     def propagate_primal_l2r(self, left_primal, right_primal, lidx, ridx, data):

@@ -36,6 +36,12 @@ import torch
 from .config import PAD_COST, MessageSchedule
 
 
+def add_rows(costs: dict, idx: torch.Tensor, contrib: dict) -> dict:
+    """``costs`` with ``contrib[key][m]`` added at row ``idx[m]`` of each of
+    its keys (out-of-place ``index_add``: duplicate indices accumulate)."""
+    return {**costs, **{k: costs[k].index_add(0, idx, v) for k, v in contrib.items()}}
+
+
 def mask_pad(delta: torch.Tensor) -> torch.Tensor:
     """Zero out entries of a marginal that came from padded cost lanes."""
     return torch.where(delta.abs() >= PAD_COST / 2, torch.zeros_like(delta), delta)
@@ -195,6 +201,21 @@ class MessageType:
     def repam_right(self, costs: dict, idx: torch.Tensor, delta: torch.Tensor,
                     data: dict) -> dict:
         raise NotImplementedError
+
+    # -- pull-mode contributions (engine_pull) ------------------------------
+    # A type that can express its reparametrization as a DENSE per-message
+    # contribution in the target block's key space opts into the pull pass
+    # (``Engine(pull=True)``, engine_pull): the engine adds the contributions
+    # of a slot of messages lane for lane onto views of the target block.
+    # Contract: repam_left(costs, idx, delta, data) must equal costs with
+    # key[idx[m]] += pull_left(delta, data, costs)[key][m], i.e.
+    # ``add_rows(costs, idx, pull_left(...))`` (``costs`` gives the target
+    # block's shapes only).  ``None`` (the default) means no hook.
+    def pull_left(self, delta: torch.Tensor, data: dict, costs: dict) -> "dict | None":
+        return None
+
+    def pull_right(self, delta: torch.Tensor, data: dict, costs: dict) -> "dict | None":
+        return None
 
     # -- exact-oracle constraint export -------------------------------------
     def lp_coupling(self, lmeta, rmeta, data: Any) -> list:

@@ -227,7 +227,7 @@ def test_port_imports_no_jax():
             "lp_mp_tpu_torch.trees_general, lp_mp_tpu_torch.io.lp_export, "
             "lp_mp_tpu_torch.io.ilp, lp_mp_tpu_torch.combilp, lp_mp_tpu_torch.checkpoint, "
             "lp_mp_tpu_torch.visitors_db, lp_mp_tpu_torch.cli, lp_mp_tpu_torch.__main__, "
-            "lp_mp_tpu_torch.capture, "
+            "lp_mp_tpu_torch.capture, lp_mp_tpu_torch.engine_pull, "
             "chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lp_mp_tpu')]; "
             "assert not bad, bad")

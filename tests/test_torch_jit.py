@@ -1,9 +1,9 @@
 """The port's captured execution (``lp_mp_tpu_torch.capture``, ``use_jit``)
 on the CPU, where the same buffer logic runs around direct calls.
 
-(a) Capturability: every function the port captures runs once in float64
-    under a dispatch mode that fails on the operations a CUDA graph cannot
-    hold (a sync with the host or a copy of host data: ``.item()``,
+(a) Capturability: every function the port captures (the pull pass of
+    ``Engine(pull=True)`` included) runs once in float64 under a dispatch
+    mode that fails on the operations a CUDA graph cannot hold (a sync with the host or a copy of host data: ``.item()``,
     ``nonzero``, ``unique``, ``masked_select``, ``torch.tensor`` of host
     values, boolean indexing), for every model family and entry point.
 (b) Parity: ``use_jit=True`` against ``use_jit=False``, bit-equal states,
@@ -42,7 +42,9 @@ from lp_mp_tpu_torch.factors.simplex import UNARY_SIMPLEX
 from lp_mp_tpu_torch.messages.vector_equality import VECTOR_EQUALITY
 from lp_mp_tpu_torch.trees import chain_tree_messages
 from lp_mp_tpu_torch.trees_general import TreeSpec
+from lp_mp_tpu_torch.engine_pull import pull_stats
 from tests.test_torch_engine import chain, random_mrf, small_grid, twin_graphs
+from tests.test_torch_engine_pull import grid_recipe
 from tests.test_torch_graph_matching import random_instance
 from tests.test_torch_tightening import absorb_rounds, real_grid8
 from tests.test_torch_trees_general import mixed_star, potts_chain
@@ -207,6 +209,16 @@ def test_engine_functions_capturable(guarded, update_mode):
         recipes.append(random_mrf(4, rep="potts"))
     for recipe in recipes:
         engine_calls(Engine(port_graph(recipe)[0], update_mode=update_mode, device="cpu"))
+    if update_mode == "shared":
+        # the pull pass: gather-fallback slots on the small graphs, strided
+        # slots (as_strided views, in-place adds) on the 16x16 Potts grid
+        for recipe in recipes:
+            engine_calls(Engine(port_graph(recipe)[0], device="cpu", pull=True))
+        g = FactorGraph()
+        grid_recipe(16, 16, L=4)(MrfConstructor(g))
+        e = Engine(g, schedule_mode="coloring", device="cpu", pull=True)
+        assert all(v["strided"] == v["slots"] for v in pull_stats(e).values())
+        engine_calls(e)
     kinds = {"primal pass", "restricted pass", "lower bound", "evaluate_primal",
              "primal consistency"}
     if update_mode in ("partition", "overlapping_partition"):
@@ -220,6 +232,7 @@ def test_model_family_functions_capturable(guarded):
     s, _ = tightened_multicut(Solver, MulticutConstructor, device="cpu")
     s.build_engine()
     engine_calls(s.engine)
+    engine_calls(Engine(s.graph, device="cpu", pull=True))      # every multicut pull hook
     s = Solver(device="cpu")                     # W5 and its odd 5-wheel factor
     mc = s.add_constructor(MulticutConstructor)
     rim = [1, 2, 3, 4, 5]
@@ -229,6 +242,7 @@ def test_model_family_functions_capturable(guarded):
     mc.add_odd_wheel_k(0, rim)
     s.build_engine()
     engine_calls(s.engine)
+    engine_calls(Engine(s.graph, device="cpu", pull=True))
     assert any(name.startswith("multicut_wheel") for name in s.engine.state)
     s = Solver(visitor=StandardVisitor(max_iter=4, primal_computation_interval=2),
                device="cpu")
@@ -236,6 +250,7 @@ def test_model_family_functions_capturable(guarded):
         random_instance(1))
     s.solve()
     engine_calls(s.engine)
+    engine_calls(Engine(s.graph, device="cpu", pull=True))      # the equality hooks
     s = Solver(visitor=StandardVisitor(max_iter=4, primal_computation_interval=2),
                device="cpu")
     dt = s.add_constructor(DiscreteTomographyConstructor)
@@ -248,6 +263,8 @@ def test_model_family_functions_capturable(guarded):
     s.solve()
     engine_calls(s.engine)
     engine_calls(Engine(ring(FactorGraph, UNARY_SIMPLEX, VECTOR_EQUALITY), device="cpu"))
+    engine_calls(Engine(ring(FactorGraph, UNARY_SIMPLEX, VECTOR_EQUALITY), device="cpu",
+                        pull=True))
     assert len({n for n in guarded if "dual pass" in n}) >= 2
 
 
