@@ -5,7 +5,9 @@
 Builds the CUDA grid kernels from lp_mp_tpu_torch/csrc with nvcc and holds
 each kernel against its plain torch version on the card: the dense phase and
 round kernels, the phase kernel under the v1 contract, and the sharded phase
-and round kernels on every shard at 1-4 shards.  Then drives the main paths,
+and round kernels on every shard at 1-4 shards (the phase kernels also at
+more labels than the round kernels take), and every kernel replayed from a
+CUDA graph, the phase kernels in every phase tuple.  Then drives the main paths,
 each with the launch counters set to 0 just before and read just after: the
 1000x1000, L=4 Potts grid through GridPottsModel.run_fast(kernel="cuda"),
 lower_bound and round_primal; the same grid through
@@ -14,8 +16,16 @@ the dense path; and the uniform schedule through the v1 contract.  Checks
 the bounds against the JAX package's, times each path and kernel against its
 plain or dense counterpart and against its bound (the bytes a launch must
 move at 3.35 TB/s, or its float32 operations at 67 TFLOP/s, whichever is
-longer), reads each kernel's device time inside run_fast(20) under
-torch.profiler, and prints one line per phase.
+longer; a phase that nothing receives in reads no cost), reads each
+kernel's device time inside run_fast(20) under torch.profiler, and prints
+one line per phase.  The timings of lp_mp_tpu_torch/phase_bench.py follow
+(which also holds the timing helpers and bounds used here): the dense, v1
+and sharded phase kernels (1 shard and one window of 4) in every phase
+tuple by graph replay with their bounds, the dense one also at 8 labels
+and at an odd width, and the captured run_fast(20) in it/s for the
+anisotropic, uniform and damped_uniform modes, dense and at 1 and 4
+shards; the captured dense run_fast(20) must end without copying its
+state.
 
 Then the generic engine path, plain PyTorch on the card in float32: a chain
 of 100000 variables with 8 labels built through MrfConstructor's batch
@@ -120,8 +130,8 @@ raise, pull="auto" runs the scatter pass.
 
 The last lines are JSON records of the engine path, of tightening, of the
 two models, of the sharded engine, the trees and the tree Solver, of the
-checkpoint, the oracles, the command line, the jit and the pull phases, a
-JSON record of the kernels, and {"ok": true, "device": {...}}.  Any failure
+checkpoint, the oracles, the command line, the jit and the pull phases, of
+the phase kernels' timings, a JSON record of the kernels, and {"ok": true, "device": {...}}.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at
 once.
 """
@@ -133,7 +143,6 @@ import json
 import os
 import re
 import sqlite3
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -152,9 +161,14 @@ from lp_mp_tpu_torch import (ChainDecomposition, Direction, DiscreteTomographyCo
                              solve_lp_relaxation)
 from lp_mp_tpu_torch.capture import flatten
 from lp_mp_tpu_torch.convert import host_array
+from lp_mp_tpu_torch import phase_bench
+from lp_mp_tpu_torch.phase_bench import (HBM_BYTES_PER_S, in_turns, launch_bound, nbytes,
+                                         phase_bytes)
 from lp_mp_tpu_torch.engine_pull import pull_stats
-from lp_mp_tpu_torch.kernel_check import (RTOL, check_grid_kernels, check_phase_v1,
-                                          check_replays, check_sharded_grid_kernels)
+import lp_mp_tpu_torch
+from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, PHASE_PARAMS, RTOL, WIDE_LABEL_SHAPES,
+                                          check_grid_kernels, check_phase_v1, check_replays,
+                                          check_sharded_grid_kernels)
 from lp_mp_tpu_torch.models.grid_potts import grid_potts_edges
 from lp_mp_tpu_torch.ops import _cuda_build
 from lp_mp_tpu_torch.ops.grid_kernels import (launch_counts, phase_update, phase_update_ref,
@@ -170,7 +184,6 @@ CHUNKS, CHUNK_ITERS = 15, 100
 # lower bound the JAX package reaches after 15 x run_fast(100, kernel="pallas")
 # on random_grid(1000, 1000, 4, seed=1): BENCH_r05.json, grid entry, target_lb
 JAX_TARGET_LB = -306284.281
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SOURCE = "lp_mp_tpu_torch/csrc/grid_potts.cu"
 SHARD_RUNS = (1, 4)            # shards of the sharded main path, all on cuda:0
 REPLACES = {"round_update": "lp_mp_tpu/ops/pallas_grid.py:303",
@@ -249,33 +262,6 @@ def rel(a: float, b: float) -> float:
 
 def max_state_err(a, b) -> float:
     return max(float((a[k] - b[k]).abs().max()) for k in a)
-
-
-def events_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def in_turns(fns: dict, reps: int) -> dict:
-    """Median ms of each callable, measured three times each in turns
-    (forward, reversed, forward order: plain, kernel, kernel, plain, plain,
-    kernel for two), after one warm-up call of each."""
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    names = list(fns)
-    times = {k: [] for k in names}
-    for order in (names, names[::-1], names):
-        for k in order:
-            times[k].append(events_ms(fns[k], reps))
-    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def host_ms(fn, reps: int) -> float:
@@ -464,26 +450,6 @@ def phase_v1_path() -> dict:
     return counts
 
 
-# float32 operations per label of one cell update: per incident edge one min
-# and one max for the min statistics, a compare, select, add and min for the
-# marginal, the add into the cell and two for its slot; three for the cell
-OPS_PER_LABEL_UPDATE = 4 * 8 + 3
-FP32_OPS_PER_S = 67e12          # H100 SXM data sheet, float32 outside the tensor cores
-
-
-def nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def launch_bound(in_bytes: int, out_bytes: int, updates: int) -> tuple:
-    """(bound_ms, bound_by): the least time for a launch that reads its
-    inputs once, writes its outputs once and makes ``updates`` cell-label
-    updates, at 3.35 TB/s and 67 TFLOP/s float32."""
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = updates * OPS_PER_LABEL_UPDATE / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def kernel_name(name: str) -> str:
     """``grid_round_kernel<2, false>`` from a demangled CUDA kernel name."""
     m = re.search(r"(\w+_kernel)<([^>]*)>", name)
@@ -545,11 +511,16 @@ def phase_time(card: str) -> dict:
     sl = one.layout.slabs(one.windows)[0]
     win = (w, sl, c["hc"], c["vc"], cs, 0, H, W)
     v1 = torch.tensor([0, 1, 0], dtype=torch.int32)
-    dense_in = nbytes([*s.values(), hcc, vcc])
-    dense_out = nbytes(s.values())
-    win_in = nbytes([*w.values(), *(x for pair in sl.values() for x in pair), c["hc"], c["vc"],
-                     *cs["hc"], *cs["vc"]])
-    win_out = nbytes(w.values())
+    # bytes read and written by each launch timed below: a round launch reads
+    # the state, the costs and (sharded) every slab row; the phases run
+    # (0, 1, 0), where nothing receives, so they read the state alone
+    dense, win_state = list(s.values()), list(w.values())
+    win_halo = [*(x for pair in sl.values() for x in pair), c["hc"], c["vc"], *cs["hc"], *cs["vc"]]
+    io = {"phase_update": phase_bytes(dense, [hcc, vcc], 0),
+          "phase_update_v1": phase_bytes(dense, [hcc, vcc], 0),
+          "round_update": (nbytes(dense + [hcc, vcc]), nbytes(dense)),
+          "phase_update_sharded": phase_bytes(win_state, win_halo, 0),
+          "round_update_sharded": (nbytes(win_state + win_halo), nbytes(win_state))}
     cells = H * W * L                   # cell-label pairs; a phase updates the cells of one colour
     updates = {"phase_update": cells // 2, "phase_update_v1": cells // 2,
                "phase_update_sharded": cells // 2, "round_update": 2 * cells,
@@ -572,8 +543,7 @@ def phase_time(card: str) -> dict:
              lambda: round_update_sharded_ref(*win, 2))):
         t = in_turns({"plain": plain, "kernel": kern}, reps=20)
         sharded = "sharded" in name
-        bound_ms, bound_by = launch_bound(win_in if sharded else dense_in,
-                                          win_out if sharded else dense_out, updates[name])
+        bound_ms, bound_by = launch_bound(*io[name], updates[name])
         times[name] = {"ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": None}
         print(f"time: {name} kernel {t['kernel'] * 1e3:.1f} us/launch "
@@ -581,7 +551,40 @@ def phase_time(card: str) -> dict:
               f"{host_ms(kern, reps=20) * 1e3:.1f} us), plain {t['plain'] * 1e3:.1f} us, bound "
               f"{bound_ms * 1e3:.1f} us ({bound_by}; no single PyTorch call computes a Potts "
               f"phase) at {H}x{W} L={L}{' (1 shard)' if sharded else ''} on {card}")
-    return times
+    return times, phase_kernel_times(card)
+
+
+def phase_kernel_times(card: str) -> dict:
+    """The phase kernels in every phase tuple and the captured run_fast in
+    every mode (``phase_bench``: graph replays of 20 launches, CUDA
+    events, median of 3 in turns), and the state copies of the captured dense
+    run_fast(20, "cuda")."""
+    rec = {"phases": phase_bench.phase_times(lp_mp_tpu_torch, PHASE_PARAMS),
+           "run_fast": phase_bench.run_fast_times(lp_mp_tpu_torch)}
+    for name, per in rec["phases"].items():
+        print(f"time: {name} by graph replay of {phase_bench.LAUNCHES} launches: " + ", ".join(
+            f"{p} {v['us']:.1f} us ({100 * v['share']:.0f} % of {v['bound_us']:.1f})"
+            for p, v in per.items()) + ("" if " L=" in name else f" at {H}x{W} L={L}")
+            + f" on {card}")
+    for name, per in rec["run_fast"].items():
+        print(f"time: captured run_fast({phase_bench.RUN_FAST_N}) {name}: " + ", ".join(
+            f"{mode} {v['its']:.1f} it/s ({v['ms']:.3f} ms)" for mode, v in per.items())
+            + f" (median of 3, CUDA events) on {card}")
+    u, hc, vc = random_grid(H, W, L, seed=SEED)
+    m = GridPottsModel(u, hc, vc, device="cuda", dtype=torch.float32)
+    n = phase_bench.RUN_FAST_N
+    dev = kernel_device_us(lambda: m.run_fast(n, kernel="cuda"))
+    graph = [r for r in m.jit.records if r.name.endswith("run_fast")]
+    copies = graph[-1].copies
+    events = sum(cnt for _, cnt in dev.values())
+    rec["dense_copies"] = {"graph_copies": copies, "profiler_events": events,
+                           "profiler_kernels": {kernel_name(k): c for k, (_, c) in dev.items()}}
+    print(f"time: captured dense run_fast({n}, 'cuda'): {copies} state copies at the end of its "
+          f"graph (capture record); one replay under torch.profiler: {events} device events "
+          f"{rec['dense_copies']['profiler_kernels']} on {card}")
+    if copies:
+        fail(f"the captured dense run_fast({n}) ends in {copies} state copies")
+    return rec
 
 
 def chain_instance(n: int, labels: int, seed: int):
@@ -1900,10 +1903,11 @@ def main() -> None:
     t0 = time.perf_counter()
     name, count, card = phase_device()
     phase_build()
-    worst = check_grid_kernels("cuda", log=print)
+    shapes = CHECK_SHAPES + WIDE_LABEL_SHAPES
+    worst = check_grid_kernels("cuda", shapes=shapes, log=print)
     print(f"check: all launches within 1e-5*(1+max|x|); max abs err {worst}")
-    worst["phase_update_v1"] = check_phase_v1("cuda", log=print)
-    worst.update(check_sharded_grid_kernels("cuda", log=print))
+    worst["phase_update_v1"] = check_phase_v1("cuda", shapes=shapes, log=print)
+    worst.update(check_sharded_grid_kernels("cuda", shapes=shapes, log=print))
     print(f"check: all v1 and sharded launches within 1e-5*(1+max|x|); max abs err {worst}")
     for k, err in check_replays("cuda", log=print).items():
         worst[k] = max(worst[k], err)
@@ -1914,7 +1918,7 @@ def main() -> None:
     sharded = phase_sharded_path(dense)
     counts.update({k: sharded[k] for k in ("phase_update_sharded", "round_update_sharded")})
     counts["phase_update_v1"] = phase_v1_path()["phase_update_v1"]
-    times = phase_time(card)
+    times, phase_kernels = phase_time(card)
     kernels = [{"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
                 "launches": counts[k], "max_abs_err": worst[k], **times[k]}
                for k in REPLACES]
@@ -1975,6 +1979,7 @@ def main() -> None:
     print(json.dumps({"cli": cli}))
     print(json.dumps({"jit": jit}))
     print(json.dumps({"pull": pull}))
+    print(json.dumps({"phase_kernels": {**phase_kernels, "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 

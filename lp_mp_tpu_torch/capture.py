@@ -23,8 +23,9 @@ unchanged, or calls ``reset`` when it rebinds them.
   tensor argument gets a static buffer: a tensor the owner made itself is
   used as it is, any other is cloned into a new one.  ``fn`` then runs once
   on the owner's side stream (the warm-up the CUDA-graph notes of PyTorch
-  ask for: lazy uploads and caches happen here, outside the graph) and is
-  captured on that stream into the owner's pool.
+  ask for: lazy uploads and caches happen here, outside the graph), on
+  clones of its donated arguments, and is captured on that stream into the
+  owner's pool.
 - **Ownership: the pass ends by copying into the state buffers.**  For
   each argument named in ``donate``, ``fn`` returns its new value; the
   graph's last operations copy it into that argument's static buffers, and
@@ -32,8 +33,10 @@ unchanged, or calls ``reset`` when it rebinds them.
   is cloned right after the replay.  So after a replay nothing that a
   caller holds lives in the pool: the graphs of one owner share its pool
   and replay in any order.  The design costs one copy of the state per
-  call, inside the graph; two graphs that swap buffers would save it, but
-  every function would then have to write its results into given tensors.
+  call, inside the graph, unless ``fn`` returns the donated buffers
+  themselves, having written its results into them (the kernel schedule of
+  ``GridPottsModel.run_fast`` does, through scratch buffers of its model):
+  a value that is its own buffer is not copied.
 - **Later calls** copy an argument into its static buffer only where the
   caller passed another tensor than the buffer, then replay.  A caller that
   keeps the returned buffers (``engine.state``) pays no copy.
@@ -44,7 +47,9 @@ unchanged, or calls ``reset`` when it rebinds them.
   function; nothing falls back to eager execution.
 - **Records.**  Per graph: warm-up and capture seconds, replays, the bytes
   the capture added to the pool (the change of
-  ``torch.cuda.memory_reserved``) and the grid-kernel launches it holds.
+  ``torch.cuda.memory_reserved``), the grid-kernel launches it holds and
+  the state tensors it copies at its end (0 for a function that writes its
+  results into the donated buffers themselves).
   The kernel wrappers count a launch when their Python code runs, which
   under capture records no launch: those counts are taken back after the
   capture and added again at each replay.
@@ -116,6 +121,7 @@ class GraphRecord:
     replays: int = 0
     pool_bytes: int = 0
     launches: dict = dataclasses.field(default_factory=dict)
+    copies: int = 0     # tensors copied into the donated buffers at the end of a call
 
 
 @dataclasses.dataclass
@@ -199,6 +205,7 @@ class Graphed:
         # a new value that is another argument's buffer is read before any
         # buffer is written
         writes = [(p, t.clone() if id(t) in pos_of else t) for p, t in writes]
+        entry.record.copies = len(writes)
         for p, t in writes:
             static[p].copy_(t)
         leaves, entry.extra_struct = flatten(extra)
@@ -224,6 +231,16 @@ class Graphed:
         entry.record.replays += 1
         return self._results(entry, self._place(entry, out))
 
+    @staticmethod
+    def warmup_args(entry: _Entry) -> tuple:
+        """The arguments of a capture's warm-up run: the static buffers, each
+        donated one cloned, so a function that writes its donated arguments
+        in place leaves the state as it was (the replay after the capture is
+        the call's one run)."""
+        donated = {p for _, positions in entry.donated for p in positions}
+        return unflatten(entry.in_struct, [t.clone() if i in donated else t
+                                           for i, t in enumerate(entry.static_in)])
+
     def _capture(self, entry: _Entry, static: dict) -> None:
         owner, rec = self.owner, entry.record
         dev = owner.device
@@ -234,7 +251,7 @@ class Graphed:
             t0 = time.perf_counter()
             stream.wait_stream(cur)
             with torch.cuda.stream(stream):
-                self.fn(*args, **static)
+                self.fn(*self.warmup_args(entry), **static)
             cur.wait_stream(stream)
             torch.cuda.synchronize(dev)
             rec.warmup_s = time.perf_counter() - t0

@@ -1,11 +1,12 @@
 // Grid-Potts colour-phase kernels for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernels of lp_mp_tpu/ops/pallas_grid.py:
-//   grid_phase_kernel<false>  <- _phase_kernel_v2 (:161, wrapper phase_update_v2);
-//                                same math as the v1 _phase_kernel (:72)
-//   grid_round_kernel<NR, false> <- _round_kernel_v2 (:303, wrapper round_update_v2)
-//   grid_phase_kernel<true>   <- _phase_kernel_sharded (:443, wrapper phase_update_sharded)
-//   grid_round_kernel<NR, true>  <- _round_kernel_sharded (:536, wrapper round_update_sharded)
+//   grid_phase_kernel<false, .>  <- _phase_kernel_v2 (:161, wrapper phase_update_v2; K2),
+//                                   and the v1 _phase_kernel (:72, K5: phase_update_v1 in
+//                                   ops/grid_kernels.py decodes its parameters and launches K2)
+//   grid_round_kernel<NR, false> <- _round_kernel_v2 (:303, wrapper round_update_v2; K1)
+//   grid_phase_kernel<true, .>   <- _phase_kernel_sharded (:443, wrapper phase_update_sharded; K4)
+//   grid_round_kernel<NR, true>  <- _round_kernel_sharded (:536, wrapper round_update_sharded; K3)
 //
 // Dense layout, float32, labels outermost (see ops/grid_kernels.py):
 //   u [L,H,W]; hm1/hm2 [L,H,W-1], the two slots of h-edge (r,c)-(r,c+1),
@@ -24,8 +25,9 @@
 // and [n, n + kSlab) come from two slabs of kSlab rows per label, the
 // neighbour shards' boundary rows (copies, or views with their own label
 // stride).  Global rows >= H are inert: they hold zeros, have no edges, and
-// the kernels write zeros there, as they do into slots of absent edges.  The geometry (colour, degree, which edges exist) comes
-// from the global row, never from the window's bounds.
+// the kernels write zeros there, as they do into slots of absent edges.  The
+// geometry (colour, degree, which edges exist) comes from the global row,
+// never from the window's bounds.
 //
 // Both layouts go through the same kernel bodies: a `Grid` names each
 // array's rows, and `row<kSharded>` finds window row r of an array (the dense
@@ -34,14 +36,51 @@
 // and a shard's result equals the matching rows of the dense result.
 //
 // What bounds them on the H100: device-memory bandwidth.  A phase reads and
-// writes the five state arrays and reads the two cost arrays (about 168 MB
-// per phase at 1000x1000, L=4) and does a few dozen flops per cell and
-// label, far below the card's flop-per-byte balance.
+// writes the five state arrays, and where a colour receives it also reads the
+// two cost arrays: 167.86 MB at 1000x1000, L=4 (50.1 us at 3.35 TB/s), and
+// 159.87 MB (47.7 us) for a phase in which nothing receives.  It does a few
+// dozen flops per cell and label, far below the card's flop-per-byte balance.
 //
-// grid_phase_kernel: one thread per cell, labels in a register loop, colours
-// and `leave` taken at run time.  Two passes over each incident edge's
-// "other" slot: one for its min and min-except, one for the update, which
-// the L1 cache serves.
+// grid_phase_kernel: one colour phase, colours and `leave` taken at run time,
+// one template for the dense grid (K2, K5) and a shard's window (K4), so a
+// shard rounds exactly like the dense grid.  What held its first version
+// (one thread per cell in 32 x 8 blocks) in the phases that receive to 49 %
+// of the bound (K2, 102 us) and 30 % (K4, 169 us; phase_bench.py of this
+// package on the H100), and what this design does about each:
+//  - Half the lanes of every warp idled: colours alternate along a row, so
+//    one lane in two took the receive branch.  Now a thread updates a
+//    horizontal pair of cells, one of each colour, and every lane of a warp
+//    does the same work.
+//  - A runtime loop over the labels, with the receiving cell's min statistics
+//    in a pass of their own: each label's loads waited for the last, and each
+//    "other" slot was read twice.  Now, for L <= kPhaseRegLabels, the label
+//    count is a template parameter: every value of the pair, the receiving
+//    cell's four "other" slots included, is loaded before the first use (one
+//    round trip to memory), the statistics come from registers, and the
+//    compiled code has no loop and few branches (at L=4 with 8-byte pairs,
+//    1095 instructions and 22 branches for K2, 1183 and 32 for K4, against
+//    1409 and 61, 1916 and 97 before; cuobjdump -sass in phase_bench.py).
+//    Other L take a generic path: statistics pass, then a label at a time;
+//    no limit on L.
+//  - Scalar 4-byte accesses only.  Now u, vm1 and vm2 move as 8-byte pairs
+//    where W is even (rows of W floats stay 8-byte aligned); hm1, hm2 and
+//    the costs, rows of W - 1 floats, stay scalar.
+//  - K4 cost 40 % more than K2 on the same bytes: it used 96 registers
+//    against K2's 64 (ptxas), so half the warps per SM (16 against 32 in
+//    blocks of 256 threads), because the window-or-slab choice made for
+//    every row pointer kept each pointer's label stride in registers.  Now a
+//    thread's own row is always addressed in the window with the launch's
+//    strides; only rows r - 1 and r + 1 (the receiving cell's vertical
+//    neighbours and the cost above) may come from a slab.  K4 now uses 104
+//    registers at L=4 against K2's 110 (ptxas): 16 warps per SM for both, in
+//    blocks of 32 pairs x 4 rows.
+// Tried and slower on the same card, and not kept: shared memory for the
+// vertical neighbours' slots plus warp shuffles for the horizontal ones (more
+// registers and a barrier); register caps below K2's count (spills); 8-row
+// and 16-row blocks; streaming stores.  Every phase of K2 and K4 moves its
+// bytes at 2.5-2.6 TB/s: K2's send-only phase, which reads no cost, is
+// about 1 us faster than its phases that receive, not the 2.4 us its bytes
+// would give.
 //
 // grid_round_kernel: NR full anisotropic rounds (red phase, black phase,
 // repeated) in one launch, so the bytes per iteration fall by 2*NR.  A block
@@ -89,6 +128,7 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cstdint>
 
 #include "cp_async.cuh"
 
@@ -149,8 +189,6 @@ __device__ __forceinline__ RowPtr row(const Rows& a, int n, int r) {
   return {a.win + (long)(r - a.shift) * a.width, a.ls};
 }
 
-__device__ __forceinline__ float at(RowPtr p, int l, int c) { return __ldg(p.p + l * p.ls + c); }
-
 __device__ __forceinline__ float* out_at(const OutRows& o, int l, int r, int c) {
   return o.p + l * o.ls + (long)(r - o.shift) * o.width + c;
 }
@@ -182,84 +220,184 @@ __device__ __forceinline__ float potts_marg(float own, float other, MinExcept st
   return own + fminf(other, me + cost);
 }
 
-// Zeros into every slot a window cell owns (sharded: an inert row).
-__device__ __forceinline__ void write_zero_cell(const Grid& g, int r, int c) {
-  for (int l = 0; l < g.L; ++l) {
-    *out_at(g.u_o, l, r, c) = 0.0f;
-    if (c < g.W - 1) *out_at(g.hm1_o, l, r, c) = 0.0f;
-    if (c > 0) *out_at(g.hm2_o, l, r, c - 1) = 0.0f;
-    *out_at(g.vm1_o, l, r, c) = 0.0f;
-    *out_at(g.vm2_o, l, r, c) = 0.0f;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // phase kernel
 // ---------------------------------------------------------------------------
-template <bool kSharded>
-__global__ void grid_phase_kernel(const Grid g, int recv_color, int send_color, float leave) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  const int L = g.L, H = g.H, W = g.W, n = g.n;
-  if (r >= n || c >= W) return;
-  const int gr = g.row0 + r;  // global row
-  if (kSharded && gr >= H) {
-    write_zero_cell(g, r, c);
-    return;
-  }
-  const int color = ((gr + c) & 1) ? 2 : 1;
-  const bool recv = recv_color == color;
-  const bool right = c < W - 1, left = c > 0, down = gr < H - 1, up = gr > 0;
-  const float deg = (float)right + (float)left + (float)down + (float)up;
-  const float omega = (send_color == color) ? 1.0f / fmaxf(deg + leave, 1.0f) : 0.0f;
+constexpr int kPhasePairs = 32;     // column pairs of a block row: one warp
+constexpr int kPhaseRows = 4;       // block rows
+constexpr int kPhaseRegLabels = 4;  // label counts up to this run with all in registers
+// u, vm1 and vm2 (arrays 0, 3, 4) with 8-byte pair accesses (kVec)
+constexpr unsigned kVecArrays = 1u | 8u | 16u;
 
-  const RowPtr ur = row<kSharded>(g.u, n, r), h1 = row<kSharded>(g.hm1, n, r),
-               h2 = row<kSharded>(g.hm2, n, r), v1 = row<kSharded>(g.vm1, n, r);
-  RowPtr v2_dn{nullptr, 0}, v2_own{nullptr, 0}, v1_up{nullptr, 0};
-  if (down) v2_dn = row<kSharded>(g.vm2, n, r + 1);  // edge below, slot of the cell below
-  if (up) {
-    v2_own = row<kSharded>(g.vm2, n, r);     // edge above, own slot
-    v1_up = row<kSharded>(g.vm1, n, r - 1);  // edge above, slot of the cell above
-  }
-  const float cr = right ? at(row<kSharded>(g.hc, n, r), 0, c) : 0.0f;
-  const float cl = left ? at(row<kSharded>(g.hc, n, r), 0, c - 1) : 0.0f;
-  const float cd = down ? at(row<kSharded>(g.vc, n, r), 0, c) : 0.0f;
-  const float cu = up ? at(row<kSharded>(g.vc, n, r - 1), 0, c) : 0.0f;
+__device__ __forceinline__ RowPtr win_row(const Rows& a, int r) {
+  return {a.win + (long)(r - a.shift) * a.width, a.ls};
+}
 
-  MinExcept st_r{0.0f, 0.0f}, st_l{0.0f, 0.0f}, st_d{0.0f, 0.0f}, st_u{0.0f, 0.0f};
+__device__ __forceinline__ float* out_row(const OutRows& o, int r) {
+  return o.p + (long)(r - o.shift) * o.width;
+}
+
+// One cell's update for one label: own = {u, right, left, down, up slot},
+// oth and st the "other" slots of its four edges and their min statistics
+// (read only when it receives), ex which edges exist.  Same order of adds as
+// the plain version (right, left, down, up).
+__device__ __forceinline__ void phase_cell(const float (&own)[5], bool recv, const bool (&ex)[4],
+                                           const float (&oth)[4], const MinExcept (&st)[4],
+                                           const float (&cost)[4], float omega, float keep,
+                                           int L, float (&out)[5]) {
+  float uu = own[0];
+  float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (recv) {
-    if (right) st_r = min_except_stats(h2.p + c, h2.ls, L);
-    if (left) st_l = min_except_stats(h1.p + c - 1, h1.ls, L);
-    if (down) st_d = min_except_stats(v2_dn.p + c, v2_dn.ls, L);
-    if (up) st_u = min_except_stats(v1_up.p + c, v1_up.ls, L);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (ex[e]) {
+        m[e] = potts_marg(own[1 + e], oth[e], st[e], cost[e], L);
+        uu += m[e];
+      }
+    }
   }
-  for (int l = 0; l < L; ++l) {
-    float uu = at(ur, l, c);
-    float own_r = 0.0f, own_l = 0.0f, own_d = 0.0f, own_u = 0.0f;
-    float mr = 0.0f, ml = 0.0f, md = 0.0f, mu = 0.0f;
-    if (right) own_r = at(h1, l, c);
-    if (left) own_l = at(h2, l, c - 1);
-    if (down) own_d = at(v1, l, c);
-    if (up) own_u = at(v2_own, l, c);
-    if (recv) {  // same order of adds as the plain version
-      if (right) { mr = potts_marg(own_r, at(h2, l, c), st_r, cr, L); uu += mr; }
-      if (left) { ml = potts_marg(own_l, at(h1, l, c - 1), st_l, cl, L); uu += ml; }
-      if (down) { md = potts_marg(own_d, at(v2_dn, l, c), st_d, cd, L); uu += md; }
-      if (up) { mu = potts_marg(own_u, at(v1_up, l, c), st_u, cu, L); uu += mu; }
+  const float d = __fmul_rn(uu, omega);
+  out[0] = uu * keep;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[1 + e] = (own[1 + e] - m[e]) + d;
+}
+
+// A thread updates a horizontal pair of cells, A = (r, c0) and B = (r, c0 + 1)
+// with c0 even: one of each colour, so every lane of a warp (32 pairs of one
+// row) takes the same path, and a warp's loads and stores cover 64
+// consecutive floats of a row.  With kL > 0 labels (exactly L) every value
+// of the pair is loaded into registers before the first use: one round trip
+// to memory per thread, no loop and no branch.  kL == 0 takes any L: the
+// receiving cell's min statistics in a pass of their own, then one label at
+// a time.
+template <bool kSharded, int kL, bool kVec>
+__global__ void __launch_bounds__(kPhasePairs* kPhaseRows)
+    grid_phase_kernel(const Grid g, int recv_color, int send_color, float leave) {
+  const int c0 = 2 * (blockIdx.x * kPhasePairs + threadIdx.x), c1 = c0 + 1;
+  const int r = blockIdx.y * kPhaseRows + threadIdx.y;
+  const int L = kL > 0 ? kL : g.L, H = g.H, W = g.W, n = g.n;
+  if (r >= n || c0 >= W) return;
+  const int gr = g.row0 + r;                   // global row
+  const bool live = !kSharded || gr < H;       // an inert row writes zeros, reads nothing
+  const bool hasB = c1 < W;
+  const bool rightA = hasB, leftA = c0 > 0, rightB = c1 < W - 1;
+  const bool down = live && gr < H - 1, up = live && gr > 0;
+  const int colorA = (gr & 1) ? 2 : 1, colorB = 3 - colorA;  // c0 is even
+  const bool recvA = live && recv_color == colorA, recvB = live && hasB && recv_color == colorB;
+  const bool recv = recvA || recvB;
+  const bool exA[4] = {rightA, leftA, down, up}, exB[4] = {rightB, true, down, up};
+  const float degA = (float)rightA + (float)leftA + (float)down + (float)up;
+  const float degB = (float)rightB + 1.0f + (float)down + (float)up;
+  const float omegaA = (live && send_color == colorA) ? 1.0f / fmaxf(degA + leave, 1.0f) : 0.0f;
+  const float omegaB = (live && send_color == colorB) ? 1.0f / fmaxf(degB + leave, 1.0f) : 0.0f;
+  const float keepA = 1.0f - __fmul_rn(omegaA, degA), keepB = 1.0f - __fmul_rn(omegaB, degB);
+
+  // The pair's own slots, from its own row (always in the window; the label
+  // strides are the launch's): u, hm1 (A's right edge, then B's), hm2 (A's
+  // left edge, then B's), vm1 (edges below), vm2 (edges above).
+  const float* const src[5] = {win_row(g.u, r).p + c0, win_row(g.hm1, r).p + c0,
+                               win_row(g.hm2, r).p + c0 - 1, win_row(g.vm1, r).p + c0,
+                               win_row(g.vm2, r).p + c0};
+  const long sls[5] = {g.u.ls, g.hm1.ls, g.hm2.ls, g.vm1.ls, g.vm2.ls};
+  const bool okA[5] = {live, live && rightA, live && leftA, down, up};
+  const bool okB[5] = {live && hasB, live && rightB, live && hasB, down && hasB, up && hasB};
+  float* const dst[5] = {out_row(g.u_o, r) + c0, out_row(g.hm1_o, r) + c0,
+                         out_row(g.hm2_o, r) + c0 - 1, out_row(g.vm1_o, r) + c0,
+                         out_row(g.vm2_o, r) + c0};
+  const long dls[5] = {g.u_o.ls, g.hm1_o.ls, g.hm2_o.ls, g.vm1_o.ls, g.vm2_o.ls};
+  // stores: every slot the pair owns; a shard stores 0 in the slot of an absent vertical edge
+  const bool stA[5] = {true, rightA, leftA, down || kSharded, up || kSharded};
+  const bool stB[5] = {hasB, rightB, hasB, (down || kSharded) && hasB, (up || kSharded) && hasB};
+
+  // The receiving cell R: its column, its costs and where its "other" slots
+  // lie: the inner horizontal one is the pair's own, the outer one is hm1 at
+  // c0 - 1 (for A) or hm2 at c1 (for B), the vertical ones are vm2 one row
+  // below and vm1 one row above (rows that may lie in a slab).
+  const int cR = recvA ? c0 : c1;
+  const bool rightR = recvA ? rightA : rightB, leftR = recvA ? leftA : true;
+  const bool outerR = recv && (recvA ? leftA : rightB);
+  float cost[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // right, left, down, up
+  RowPtr xo{src[0], 0}, vdn{src[0], 0}, vup{src[0], 0};
+  if (recv) {
+    const float* hcr = win_row(g.hc, r).p;
+    if (rightR) cost[0] = __ldg(hcr + cR);
+    if (leftR) cost[1] = __ldg(hcr + cR - 1);
+    if (down) cost[2] = __ldg(win_row(g.vc, r).p + cR);
+    if (up) cost[3] = __ldg(row<kSharded>(g.vc, n, r - 1).p + cR);
+    xo = recvA ? RowPtr{src[1] - 1, g.hm1.ls} : RowPtr{src[2] + 2, g.hm2.ls};
+    if (down) vdn = row<kSharded>(g.vm2, n, r + 1);
+    if (up) vup = row<kSharded>(g.vm1, n, r - 1);
+    vdn.p += cR;
+    vup.p += cR;
+  }
+  const bool dnR = recv && down, upR = recv && up;
+
+  // one label: the pair's own slots and R's others (inner from the own ones)
+  auto load = [&](int l, float (&a)[5], float (&b)[5], float (&o)[4]) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      if (kVec && ((kVecArrays >> k) & 1)) {  // okB[k] == okA[k] here: W is even
+        const float2 v = okA[k] ? __ldg(reinterpret_cast<const float2*>(src[k] + l * sls[k]))
+                                : make_float2(0.0f, 0.0f);
+        a[k] = v.x;
+        b[k] = v.y;
+      } else {
+        a[k] = okA[k] ? __ldg(src[k] + l * sls[k]) : 0.0f;
+        b[k] = okB[k] ? __ldg(src[k] + l * sls[k] + 1) : 0.0f;
+      }
     }
-    const float d = __fmul_rn(uu, omega);
-    *out_at(g.u_o, l, r, c) = uu * (1.0f - __fmul_rn(omega, deg));
-    if (right) *out_at(g.hm1_o, l, r, c) = (own_r - mr) + d;
-    if (left) *out_at(g.hm2_o, l, r, c - 1) = (own_l - ml) + d;
-    if (down) {
-      *out_at(g.vm1_o, l, r, c) = (own_d - md) + d;
-    } else if (kSharded) {
-      *out_at(g.vm1_o, l, r, c) = 0.0f;
+    const float x = outerR ? __ldg(xo.p + l * xo.ls) : 0.0f;
+    o[0] = recvA ? b[2] : x;  // hm2 at cR
+    o[1] = recvA ? x : a[1];  // hm1 at cR - 1
+    o[2] = dnR ? __ldg(vdn.p + l * vdn.ls) : 0.0f;
+    o[3] = upR ? __ldg(vup.p + l * vup.ls) : 0.0f;
+  };
+  auto update = [&](int l, const float (&a)[5], const float (&b)[5], const float (&o)[4],
+                    const MinExcept (&st)[4]) {
+    float outA[5], outB[5];
+    phase_cell(a, recvA, exA, o, st, cost, omegaA, keepA, L, outA);
+    phase_cell(b, recvB, exB, o, st, cost, omegaB, keepB, L, outB);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {  // (a shard's slot of an absent vertical edge gets 0)
+      float* const p = dst[k] + l * dls[k];
+      const float va = (k >= 3 && !exA[k - 1]) ? 0.0f : outA[k];
+      const float vb = (k >= 3 && !exB[k - 1]) ? 0.0f : outB[k];
+      if (kVec && ((kVecArrays >> k) & 1)) {  // stB[k] == stA[k] here
+        if (stA[k]) *reinterpret_cast<float2*>(p) = make_float2(va, vb);
+      } else {
+        if (stA[k]) p[0] = va;
+        if (stB[k]) p[1] = vb;
+      }
     }
-    if (up) {
-      *out_at(g.vm2_o, l, r, c) = (own_u - mu) + d;
-    } else if (kSharded) {
-      *out_at(g.vm2_o, l, r, c) = 0.0f;
+  };
+
+  MinExcept st[4] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+  if constexpr (kL > 0) {
+    float a[kL][5], b[kL][5], o[kL][4];
+#pragma unroll
+    for (int l = 0; l < kL; ++l) load(l, a[l], b[l], o[l]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // min statistics in label order
+      st[e] = {o[0][e], kBig};
+#pragma unroll
+      for (int l = 1; l < kL; ++l) {
+        st[e].s = fminf(st[e].s, fmaxf(st[e].m, o[l][e]));
+        st[e].m = fminf(st[e].m, o[l][e]);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kL; ++l) update(l, a[l], b[l], o[l], st);
+  } else {
+    if (recv) {
+      if (rightR) st[0] = min_except_stats(recvA ? src[2] + 1 : xo.p, g.hm2.ls, L);
+      if (leftR) st[1] = min_except_stats(recvA ? xo.p : src[1], g.hm1.ls, L);
+      if (down) st[2] = min_except_stats(vdn.p, vdn.ls, L);
+      if (up) st[3] = min_except_stats(vup.p, vup.ls, L);
+    }
+    for (int l = 0; l < L; ++l) {
+      float a[5], b[5], o[4];
+      load(l, a, b, o);
+      update(l, a, b, o, st);
     }
   }
 }
@@ -469,13 +607,54 @@ __global__ void __launch_bounds__(kRoundMaxThreads, 2) grid_round_kernel(const G
   }
 }
 
+template <bool kSharded, int kL, bool kVec>
+cudaError_t launch_phase_labels(const Grid& g, int recv_color, int send_color, float leave,
+                                cudaStream_t stream) {
+  const int pairs = (g.W + 1) / 2;
+  const dim3 block(kPhasePairs, kPhaseRows);
+  const dim3 grid((pairs + kPhasePairs - 1) / kPhasePairs, (g.n + kPhaseRows - 1) / kPhaseRows);
+  grid_phase_kernel<kSharded, kL, kVec><<<grid, block, 0, stream>>>(g, recv_color, send_color,
+                                                                   leave);
+  return cudaGetLastError();
+}
+
+// Whether the pairs of u, vm1 and vm2 (both cells, every row and label) sit
+// on 8-byte boundaries in the window and the outputs: W even, even label
+// strides, 8-byte aligned arrays.
+bool pairs_aligned(const Grid& g) {
+  if (g.W % 2) return false;
+  const Rows* in[3] = {&g.u, &g.vm1, &g.vm2};
+  const OutRows* out[3] = {&g.u_o, &g.vm1_o, &g.vm2_o};
+  for (int k = 0; k < 3; ++k) {
+    if ((reinterpret_cast<uintptr_t>(in[k]->win) & 7) || (in[k]->ls & 1) ||
+        (reinterpret_cast<uintptr_t>(out[k]->p) & 7) || (out[k]->ls & 1)) {
+      return false;
+    }
+  }
+  return true;
+}
+
+template <bool kSharded, int kL>
+cudaError_t launch_phase_vec(const Grid& g, int recv_color, int send_color, float leave,
+                             cudaStream_t stream) {
+  if (pairs_aligned(g)) {
+    return launch_phase_labels<kSharded, kL, true>(g, recv_color, send_color, leave, stream);
+  }
+  return launch_phase_labels<kSharded, kL, false>(g, recv_color, send_color, leave, stream);
+}
+
 template <bool kSharded>
 cudaError_t launch_phase(const Grid& g, int recv_color, int send_color, float leave,
                          cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((g.W + block.x - 1) / block.x, (g.n + block.y - 1) / block.y);
-  grid_phase_kernel<kSharded><<<grid, block, 0, stream>>>(g, recv_color, send_color, leave);
-  return cudaGetLastError();
+  static_assert(kPhaseRegLabels == 4, "one instantiation per label count in registers");
+  switch (g.L) {
+    case 1: return launch_phase_vec<kSharded, 1>(g, recv_color, send_color, leave, stream);
+    case 2: return launch_phase_vec<kSharded, 2>(g, recv_color, send_color, leave, stream);
+    case 3: return launch_phase_vec<kSharded, 3>(g, recv_color, send_color, leave, stream);
+    case 4: return launch_phase_vec<kSharded, 4>(g, recv_color, send_color, leave, stream);
+    default:
+      return launch_phase_labels<kSharded, 0, false>(g, recv_color, send_color, leave, stream);
+  }
 }
 
 // Devices whose round-kernel attributes are remembered below; a device of a

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.grid_kernels import (STATE_KEYS, phase_update, phase_update_ref,
+from .ops.grid_kernels import (ROUND_MAX_LABELS, STATE_KEYS, phase_update, phase_update_ref,
                                phase_update_sharded, phase_update_sharded_ref, phase_update_v1,
                                round_update, round_update_ref, round_update_sharded,
                                round_update_sharded_ref)
@@ -22,10 +22,21 @@ from .parallel.grid import RowShards
 # written per block: 12 x 56 at L=4 and n_rounds=2, 17 x 56 at n_rounds=1,
 # 56 x 56 at L=1, 13 x 24 at L=8, 14 x 8 at L=32), among them widths that are
 # no multiple of 4 floats, heights below a tile, W and H of 1 and 2, L = 1
-# and L = 32; last the main path's 1000 x 1000 grid with 4 labels
+# and L = 32; then shapes around the phase kernel's blocks (PHASE_BLOCK):
+# widths 1-3 columns either side of 64 and 128, heights that leave a partial
+# block; last the main path's 1000 x 1000 grid with 4 labels
+# (rows, columns) of the phase kernel's block: kPhaseRows rows of
+# kPhasePairs pairs of cells in csrc/grid_potts.cu
+PHASE_BLOCK = (4, 64)
 CHECK_SHAPES = ((8, 8, 4), (33, 47, 3), (64, 40, 2), (9, 11, 1), (17, 130, 5),
                 (13, 57, 4), (5, 117, 4), (41, 113, 4), (9, 1, 3), (7, 2, 4), (1, 60, 4),
-                (2, 61, 2), (57, 59, 1), (23, 26, 8), (30, 21, 32), (1000, 1000, 4))
+                (2, 61, 2), (57, 59, 1), (23, 26, 8), (30, 21, 32),
+                (10, 63, 4), (9, 65, 3), (23, 66, 4), (17, 62, 2), (6, 67, 5), (19, 129, 4),
+                (1000, 1000, 4))
+# more labels than the round kernels take (ROUND_MAX_LABELS): the phase
+# kernels take one label at a time there, with the receiving cell's
+# statistics in a pass of their own; the check skips the round kernels there
+WIDE_LABEL_SHAPES = ((11, 37, 40), (6, 65, 33))
 # (recv_color, send_color, leave): the phase tuples of
 # tests/test_pallas_grid.py:91-92, whose leave values are x10 there
 PHASE_PARAMS = ((2, 2, 0.0), (1, 1, 0.0), (0, 1, 0.0), (2, 0, 0.0),
@@ -94,7 +105,7 @@ def check_grid_kernels(device="cuda", shapes=CHECK_SHAPES, seed=0, log=print):
                 err = _compare("phase_update", f"{tag} {p}", out, ref, log)
                 worst["phase_update"] = max(worst["phase_update"], err)
                 state = ref     # chain the phases, so later launches start from rich state
-            for n_rounds in (1, 2):
+            for n_rounds in (1, 2) if L <= ROUND_MAX_LABELS else ():
                 out = round_update(state, hc, vc, n_rounds)
                 torch.cuda.synchronize()
                 ref = round_update_ref(state, hc, vc, n_rounds)
@@ -131,9 +142,10 @@ def check_sharded_grid_kernels(device="cuda", shapes=CHECK_SHAPES, shard_counts=
     disagreement; return the max abs error per kernel wrapper name.  Logs
     one line per shape, input kind and shard count."""
     worst = {"phase_update_sharded": 0.0, "round_update_sharded": 0.0}
-    steps = [(phase_update_sharded, phase_update_sharded_ref, p) for p in PHASE_PARAMS]
-    steps += [(round_update_sharded, round_update_sharded_ref, (nr,)) for nr in (1, 2)]
     for i, (H, W, L) in enumerate(shapes):
+        steps = [(phase_update_sharded, phase_update_sharded_ref, p) for p in PHASE_PARAMS]
+        if L <= ROUND_MAX_LABELS:
+            steps += [(round_update_sharded, round_update_sharded_ref, (nr,)) for nr in (1, 2)]
         for ties in (False, True):
             state, hc, vc = random_dense_state(H, W, L, seed + i, ties, device)
             tag = f"{H}x{W}x{L}{' ties' if ties else ''}"
@@ -159,8 +171,8 @@ def check_sharded_grid_kernels(device="cuda", shapes=CHECK_SHAPES, shard_counts=
                     windows = new
                 for name, err in errs.items():
                     worst[name] = max(worst[name], err)
-                log(f"check sharded {tag} shards={n} (Hl={lay.Hl}): {6 * n} phase and {2 * n} "
-                    f"round launches, max abs err " +
+                log(f"check sharded {tag} shards={n} (Hl={lay.Hl}): {6 * n} phase and "
+                    f"{(len(steps) - 6) * n} round launches, max abs err " +
                     " ".join(f"{k}={e:.1e}" for k, e in errs.items()))
     return worst
 
@@ -168,18 +180,20 @@ def check_sharded_grid_kernels(device="cuda", shapes=CHECK_SHAPES, shard_counts=
 def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=print):
     """Every kernel captured in a CUDA graph (``capture.Graphs``) at
     ``shape`` (the main path's) and replayed on two inputs, each replay
-    against the plain version on the same input: the sharded kernels over
-    ``shards`` shards on ``device``, as ``ShardedGridPotts`` captures its
-    sweeps.  Returns the max abs error per kernel wrapper name."""
+    against the plain version on the same input: the phase kernels in every
+    ``PHASE_PARAMS`` phase (the dense ones writing into given buffers, as
+    ``GridPottsModel.run_fast`` does), the sharded kernels over ``shards``
+    shards on ``device``, as ``ShardedGridPotts`` captures its sweeps.
+    Returns the max abs error per kernel wrapper name."""
     from .capture import Graphs
 
     H, W, L = shape
     jit = Graphs(device, name="kernel check")
     lay = RowShards(H, W, [device] * shards)
-    _, hc, vc = random_dense_state(H, W, L, seed, False, device)
+    like, hc, vc = random_dense_state(H, W, L, seed, False, device)
     costs = lay.split_costs(hc, vc)
     cost_slabs = lay.slabs(costs)
-    v1 = torch.tensor([0, 1, 0], dtype=torch.int32)
+    out = {k: torch.empty_like(v) for k, v in like.items()}
 
     def sweep(kern, params):
         def run(windows):
@@ -193,32 +207,36 @@ def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=p
         return [ref_fn(w, s, c["hc"], c["vc"], cs, r0, H, W, *params)
                 for w, s, c, cs, r0 in zip(windows, slabs, costs, cost_slabs, lay.row0)]
 
-    dense = (("phase_update", lambda s: phase_update(s, hc, vc, 0, 1, 0.0),
-              lambda s: phase_update_ref(s, hc, vc, 0, 1, 0.0)),
-             ("round_update", lambda s: round_update(s, hc, vc, 2),
-              lambda s: round_update_ref(s, hc, vc, 2)),
-             ("phase_update_v1", lambda s: phase_update_v1(v1, s, hc, vc),
-              lambda s: phase_update_ref(s, hc, vc, 0, 1, 0.0)))
-    sharded = (("phase_update_sharded", phase_update_sharded, phase_update_sharded_ref,
-                (0, 1, 0.0)),
-               ("round_update_sharded", round_update_sharded, round_update_sharded_ref, (2,)))
+    def v1(p):
+        return torch.tensor([p[0], p[1], round(10 * p[2])], dtype=torch.int32)
+
+    dense = [("phase_update", p, lambda s, p=p: phase_update(s, hc, vc, *p, out=out),
+              lambda s, p=p: phase_update_ref(s, hc, vc, *p)) for p in PHASE_PARAMS]
+    dense += [("round_update", (2,), lambda s: round_update(s, hc, vc, 2, out=out),
+               lambda s: round_update_ref(s, hc, vc, 2))]
+    dense += [("phase_update_v1", p, lambda s, p=p: phase_update_v1(v1(p), s, hc, vc),
+               lambda s, p=p: phase_update_ref(s, hc, vc, *p)) for p in ((0, 1, 0.0), (2, 2, 1.0))]
+    sharded = [("phase_update_sharded", phase_update_sharded, phase_update_sharded_ref, p)
+               for p in PHASE_PARAMS]
+    sharded += [("round_update_sharded", round_update_sharded, round_update_sharded_ref, (2,))]
     worst = {}
-    for name, kern, ref_fn in dense:
-        g = jit.jit(kern, f"{name} replay")
+    for name, params, kern, ref_fn in dense:
+        g = jit.jit(lambda s, kern=kern: dict(kern(s)), f"{name}{params} replay")
         for k in range(2):
             state = random_dense_state(H, W, L, seed + 1 + k, False, device)[0]
-            out = g(state)
+            got = g(state)
             torch.cuda.synchronize()
-            err = _compare(name, f"{H}x{W}x{L} replay {k}", out, ref_fn(state), lambda line: None)
+            err = _compare(name, f"{H}x{W}x{L} {params} replay {k}", got, ref_fn(state),
+                           lambda line: None)
             worst[name] = max(worst.get(name, 0.0), err)
     for name, kern, ref_fn, params in sharded:
-        g = jit.jit(sweep(kern, params), f"{name} sweep replay")
+        g = jit.jit(sweep(kern, params), f"{name}{params} sweep replay")
         for k in range(2):
             windows = lay.split(random_dense_state(H, W, L, seed + 1 + k, False, device)[0])
             outs = g(windows)
             torch.cuda.synchronize()
-            for i, (out, ref) in enumerate(zip(outs, sweep_ref(ref_fn, params, windows))):
-                err = _compare(name, f"{H}x{W}x{L} shard {i} replay {k}", out, ref,
+            for i, (got, ref) in enumerate(zip(outs, sweep_ref(ref_fn, params, windows))):
+                err = _compare(name, f"{H}x{W}x{L} {params} shard {i} replay {k}", got, ref,
                                lambda line: None)
                 worst[name] = max(worst.get(name, 0.0), err)
     st = jit.stats()

@@ -84,6 +84,7 @@ class GridPottsModel:
         self.hc = self._tensor(hcost)
         self.vc = self._tensor(vcost)
         self.black, self.deg = grid_masks(H, W, self.device, self.dtype)
+        self._scratch_sets = None
         self.jit = Graphs(self.device, enabled=use_jit, name="GridPottsModel")
         self.state = self.jit.adopt(self.state)
         self._iterate_fn = self.jit.jit(
@@ -110,7 +111,8 @@ class GridPottsModel:
             t = state[k]
             if tuple(t.shape) != want[k]:
                 raise ValueError(f"state[{k!r}] has shape {tuple(t.shape)}, expected {want[k]}")
-            new[k] = t.to(device=self.device, dtype=self.dtype).contiguous()
+            # a copy: run_fast writes the state in place, never into the caller's tensors
+            new[k] = t.to(device=self.device, dtype=self.dtype, copy=True).contiguous()
         self.state = self.jit.assign(self.state, new)
         return self
 
@@ -178,27 +180,44 @@ class GridPottsModel:
 
     def _run_fast_kernels(self, s, mode, n):
         """The fused schedule of ``_run_fast_pallas`` (grid_potts.py:243-288)
-        through the kernel wrappers.  Colour codes: 1=black, 2=red."""
+        through the kernel wrappers.  Colour codes: 1=black, 2=red.  Every
+        launch writes into given buffers: the first reads ``s`` and the last
+        writes ``s``'s own tensors, the ones between ping-pong through the
+        two scratch sets of ``_scratch``, so the call allocates nothing and
+        (captured) ends without copying its state.  A schedule of one launch
+        (the prologue of ``n = 0``) writes scratch and copies it back."""
         hc, vc = self.hc, self.vc
+        steps = []      # (wrapper, its arguments after the state)
         if mode in _ANISOTROPIC:
             # send-only black prologue, then kernels covering two full rounds
             # per pass, and a single-round pass for an odd remainder
-            s = phase_update(s, hc, vc, 0, 1, 0.0)
-            r = n
-            while r >= 2:
-                s = round_update(s, hc, vc, n_rounds=2)
-                r -= 2
-            if r:
-                s = round_update(s, hc, vc, n_rounds=1)
+            steps.append((phase_update, (hc, vc, 0, 1, 0.0)))
+            steps += [(round_update, (hc, vc, 2))] * (n // 2)
+            if n % 2:
+                steps.append((round_update, (hc, vc, 1)))
         elif mode in (ReparametrizationMode.uniform, ReparametrizationMode.damped_uniform):
             leave = 0.0 if mode == ReparametrizationMode.uniform else 1.0
             cyc = ((1, 1, leave), (2, 2, leave), (2, 2, leave), (1, 1, leave))
-            for _ in range(n):
-                for p in cyc:
-                    s = phase_update(s, hc, vc, *p)
+            steps += [(phase_update, (hc, vc, *p)) for _ in range(n) for p in cyc]
         else:
             raise NotImplementedError(f"{mode} not supported on grid model")
+        scratch = self._scratch() if steps else None
+        src = s
+        for i, (fn, args) in enumerate(steps):
+            last = i == len(steps) - 1
+            src = fn(src, *args, out=s if last and i else scratch[i % 2])
+        if len(steps) == 1:
+            for k in STATE_KEYS:
+                s[k].copy_(src[k])
         return s
+
+    def _scratch(self) -> list:
+        """Two state-shaped sets of buffers that ``run_fast``'s launches
+        write through, made at first use (under capture: in the warm-up)."""
+        if self._scratch_sets is None:
+            self._scratch_sets = [{k: torch.empty_like(v) for k, v in self.state.items()}
+                                  for _ in range(2)]
+        return self._scratch_sets
 
     # ------------------------------------------------------------------
     def _lower_bound_impl(self, s):

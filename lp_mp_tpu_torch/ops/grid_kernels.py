@@ -339,12 +339,27 @@ def _run(fn_name: str, dev, ptr_args, out, *scalars):
     return out
 
 
-def _launch(fn_name: str, state, hc, vc, *scalars):
+def _launch(fn_name: str, state, hc, vc, *scalars, out=None):
     L, H, W = _check_cuda_args(state, hc, vc)
-    out = {k: torch.empty_like(state[k]) for k in STATE_KEYS}
+    if out is None:
+        out = {k: torch.empty_like(state[k]) for k in STATE_KEYS}
+    else:
+        _check_out(out, _dense_tensors(state, hc, vc))
     ptrs = [state[k].data_ptr() for k in STATE_KEYS] + [hc.data_ptr(), vc.data_ptr()]
     ptrs += [out[k].data_ptr() for k in STATE_KEYS]
     return _run(fn_name, state["u"].device, ptrs, out, L, H, W, *scalars)
+
+
+def _dense_tensors(state, hc, vc) -> dict:
+    return {**{k: state[k] for k in STATE_KEYS}, "hc": hc, "vc": vc}
+
+
+def _plain_into(out, named, new):
+    """A plain version's result ``new`` for the inputs ``named``: copied into
+    ``out`` where given (checked as a kernel's output is), else ``new``."""
+    if out is not None:
+        _check_out(out, named)
+    return _write_into(out, new)
 
 
 def _check_out(out, named):
@@ -374,24 +389,27 @@ def _launch_sharded(fn_name: str, named, L, n, row0, H, W, *scalars, out=None):
 
 
 def phase_update(state, hc, vc, recv_color: int, send_color: int,
-                 leave: float = 0.0):
-    """One colour phase; replaces ``phase_update_v2``.  Returns a new state
-    dict (the inputs are not modified)."""
+                 leave: float = 0.0, out=None):
+    """One colour phase; replaces ``phase_update_v2``.  Returns the new
+    state dict (the inputs are not modified): ``out`` where given (a state
+    dict that shares no memory with the inputs, written in place; the kernel
+    writes there directly), else a new one."""
     dev = _device_of(state, hc, vc)
     if dev.type == "cpu":
-        return phase_update_ref(state, hc, vc, recv_color, send_color, leave)
+        return _plain_into(out, _dense_tensors(state, hc, vc),
+                           phase_update_ref(state, hc, vc, recv_color, send_color, leave))
     _check_colours(recv_color, send_color)
     out = _launch("lpmp_grid_phase_update", state, hc, vc,
-                  int(recv_color), int(send_color), float(leave))
+                  int(recv_color), int(send_color), float(leave), out=out)
     phase_update.launches += 1
     return out
 
 
-def phase_update_v1(params, state, hc, vc):
+def phase_update_v1(params, state, hc, vc, out=None):
     """One colour phase under the v1 kernel's contract (``phase_update``,
     ``pallas_grid.py:770``): ``params`` int32[3] = (recv_color, send_color,
     leave x 10), decoded as the v1 kernel does (leave = float32(p[2]) / 10)
-    and run through the phase kernel.  Returns a new state dict."""
+    and run through the phase kernel.  ``out`` as for ``phase_update``."""
     if not isinstance(params, torch.Tensor) or params.dtype != torch.int32 \
             or tuple(params.shape) != (3,):
         raise ValueError(f"params must be an int32 tensor of shape (3,), got {params!r}")
@@ -399,30 +417,35 @@ def phase_update_v1(params, state, hc, vc):
     leave = float(np.float32(leave10) / np.float32(10.0))
     dev = _device_of(state, hc, vc)
     if dev.type == "cpu":
-        return phase_update_ref(state, hc, vc, recv_color, send_color, leave)
+        return _plain_into(out, _dense_tensors(state, hc, vc),
+                           phase_update_ref(state, hc, vc, recv_color, send_color, leave))
     _check_colours(recv_color, send_color)
-    out = _launch("lpmp_grid_phase_update", state, hc, vc, recv_color, send_color, leave)
+    out = _launch("lpmp_grid_phase_update", state, hc, vc, recv_color, send_color, leave,
+                  out=out)
     phase_update_v1.launches += 1
     return out
 
 
-def round_update(state, hc, vc, n_rounds: int = 1):
+def round_update(state, hc, vc, n_rounds: int = 1, out=None):
     """``n_rounds`` (1 or 2) full anisotropic rounds in one pass; replaces
-    ``round_update_v2``.  Returns a new state dict."""
+    ``round_update_v2``.  ``out`` as for ``phase_update``."""
     if n_rounds not in (1, 2):
         raise ValueError(f"n_rounds must be 1 or 2, got {n_rounds!r}")
     dev = _device_of(state, hc, vc)
     if dev.type == "cpu":
-        return round_update_ref(state, hc, vc, n_rounds)
-    return launch_round_update(state, hc, vc, n_rounds)
+        return _plain_into(out, _dense_tensors(state, hc, vc),
+                           round_update_ref(state, hc, vc, n_rounds))
+    return launch_round_update(state, hc, vc, n_rounds, out=out)
 
 
-def launch_round_update(state, hc, vc, n_rounds: int, tile=(0, 0)):
+def launch_round_update(state, hc, vc, n_rounds: int, tile=(0, 0), out=None):
     """``round_update``'s kernel on CUDA tensors, with the tile ``(T_r,
     T_c)`` of cells each block writes; ``(0, 0)`` takes the kernel's own
-    choice (``round_tile``).  Another tile is for a tile sweep."""
+    choice (``round_tile``).  Another tile is for a tile sweep.  ``out`` as
+    for ``phase_update``."""
     _check_round_labels(state["u"].shape[0], "round_update")
-    out = _launch("lpmp_grid_round_update", state, hc, vc, int(n_rounds), *map(int, tile))
+    out = _launch("lpmp_grid_round_update", state, hc, vc, int(n_rounds), *map(int, tile),
+                  out=out)
     round_update.launches += 1
     return out
 
@@ -460,8 +483,8 @@ def phase_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H
     L, n = _check_sharded_args(named, row0, H, W, cuda=dev.type == "cuda")
     _check_colours(recv_color, send_color)
     if dev.type == "cpu":
-        return phase_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0, H, W,
-                                        recv_color, send_color, leave, out=out)
+        return _plain_into(out, named, phase_update_sharded_ref(
+            window, slabs, hc_win, vc_win, cost_slabs, row0, H, W, recv_color, send_color, leave))
     out = _launch_sharded("lpmp_grid_phase_update_sharded", named, L, n, row0, H, W,
                           int(recv_color), int(send_color), float(leave), out=out)
     phase_update_sharded.launches += 1
@@ -479,8 +502,8 @@ def round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H
     dev = _device_of_tensors(named.values())
     L, n = _check_sharded_args(named, row0, H, W, cuda=dev.type == "cuda")
     if dev.type == "cpu":
-        return round_update_sharded_ref(window, slabs, hc_win, vc_win, cost_slabs, row0, H, W,
-                                        n_rounds, out=out)
+        return _plain_into(out, named, round_update_sharded_ref(
+            window, slabs, hc_win, vc_win, cost_slabs, row0, H, W, n_rounds))
     _check_round_labels(L, "round_update_sharded")
     out = _launch_sharded("lpmp_grid_round_update_sharded", named, L, n, row0, H, W,
                           int(n_rounds), 0, 0, out=out)

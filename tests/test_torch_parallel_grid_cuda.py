@@ -10,9 +10,9 @@ import pytest
 import torch
 
 from lp_mp_tpu_torch import GridPottsModel, ShardedGridPotts, random_grid
-from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, PHASE_PARAMS, SHARD_COUNTS,
-                                          check_phase_v1, check_sharded_grid_kernels,
-                                          random_dense_state)
+from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, PHASE_PARAMS, RTOL, SHARD_COUNTS,
+                                          WIDE_LABEL_SHAPES, check_phase_v1,
+                                          check_sharded_grid_kernels, random_dense_state)
 from lp_mp_tpu_torch.ops import grid_kernels as gk
 from lp_mp_tpu_torch.parallel.grid import RowShards
 
@@ -84,3 +84,27 @@ def test_sharded_cuda_tensors_never_fall_back(cuda):
     ref = gk.round_update_sharded_ref(*args, 2)
     for k in gk.STATE_KEYS:
         assert torch.equal(out[k], ref[k]), k
+
+
+def test_sharded_phase_kernel_takes_more_labels_than_the_round_kernel(cuda):
+    gk.reset_launch_counts()
+    check_sharded_grid_kernels(cuda, shapes=WIDE_LABEL_SHAPES, log=lambda line: None)
+    counts = gk.launch_counts()
+    # per shape: two inputs through six phases on every shard, no round
+    assert counts["phase_update_sharded"] == 2 * 6 * sum(SHARD_COUNTS) * len(WIDE_LABEL_SHAPES)
+    assert counts["round_update_sharded"] == 0
+
+
+@pytest.mark.parametrize("mode", ["uniform", "damped_uniform"])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_uniform_run_fast_matches_the_plain_sweeps(cuda, mode, shards):
+    """The uniform schedules through the sharded phase kernel against
+    ``iterate``, the same four phases per iteration in plain torch."""
+    u, hc, vc = random_grid(45, 67, 4, seed=8)
+    kw = dict(devices=[cuda] * shards, dtype=torch.float32)
+    fast = ShardedGridPotts(u, hc, vc, **kw).run_fast(3, mode)
+    plain = ShardedGridPotts(u, hc, vc, **kw).iterate(mode, n=3)
+    a, b = fast.dense_state(), plain.dense_state()
+    for k in gk.STATE_KEYS:
+        scale = 1.0 + float(b[k].abs().max())
+        assert float((a[k] - b[k]).abs().max()) <= RTOL * scale, k
