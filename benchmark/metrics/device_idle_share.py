@@ -1,0 +1,9 @@
+"""Share of the traced window in which no operation ran on the device:
+1 - (union of the device's busy intervals) / window, in percent."""
+
+
+def read(rec: dict, cs: dict):
+    tr = rec.get("trace")
+    if not tr or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
