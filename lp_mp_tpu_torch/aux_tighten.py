@@ -43,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tracing
 from .capture import Graphs
 from .config import PAD_COST
 from .factors.multicut import MULTICUT_EDGE, MULTICUT_TRIPLET
@@ -233,7 +234,7 @@ class _AuxPass:
             return 0.0
         self._sync()
         self._graphs()
-        return float(self._bound_fn(self.c, self.active))
+        return tracing.fetch("aux.lower_bound", self._bound_fn(self.c, self.active))
 
     def evaluate_primal(self, engine, prim) -> float:
         """The absorbed triplets' cost under a primal propagated from the
@@ -242,7 +243,8 @@ class _AuxPass:
             return 0.0
         self._sync()
         self._graphs()
-        return float(self._cost_fn(self.c, self.lidx, self.active, prim[self.sender.name]))
+        return tracing.fetch("aux.evaluate_primal",
+                             self._cost_fn(self.c, self.lidx, self.active, prim[self.sender.name]))
 
     def _reset(self) -> None:
         if self._jit is not None:

@@ -45,6 +45,10 @@ unchanged, or calls ``reset`` when it rebinds them.
   the direct call's, bit for bit.
 - **Errors.**  A capture that fails raises ``RuntimeError`` naming the
   function; nothing falls back to eager execution.
+- **Tracing** (``tracing``): each capture is the span ``lpmp.capture`` and
+  adds to the counters ``captures`` and ``capture_s`` (its warm-up and
+  capture seconds); each replay (copy-in, launch, launch accounting, result
+  clones) is the span ``lpmp.replay``.
 - **Records.**  Per graph: warm-up and capture seconds, replays, the bytes
   the capture added to the pool (the change of
   ``torch.cuda.memory_reserved``), the grid-kernel launches it holds and
@@ -68,6 +72,7 @@ import warnings
 
 import torch
 
+from . import tracing
 from .ops import grid_kernels
 
 _LEAF = object()     # structure marker of a tensor leaf
@@ -155,11 +160,15 @@ class Graphed:
         if entry is None:
             entry = self._new_entry(args, leaves, struct)
             if self.owner.device.type == "cuda":
-                self._capture(entry, static)
+                with tracing.span("lpmp.capture"):
+                    self._capture(entry, static)
+                tracing.add("captures")
+                tracing.add("capture_s", entry.record.warmup_s + entry.record.capture_s)
             self.owner.records.append(entry.record)
             self._entries[key] = entry
         if entry.graph is not None:
-            return self._replay(entry, leaves)
+            with tracing.span("lpmp.replay"):
+                return self._replay(entry, leaves)
         return self._direct(entry, leaves, static)
 
     # ------------------------------------------------------------------

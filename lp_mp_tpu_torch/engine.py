@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from . import schedule as sched
+from . import tracing
 from .capture import Graphs
 from .config import (PAD_COST, Direction, ReparametrizationMode, entry_device, eps_for,
                      real_dtype)
@@ -953,6 +954,7 @@ class Engine:
     def compute_backward_pass(self, mode) -> None:
         self.state, _ = self._pass("dual", mode, Direction.backward)(self.state)
 
+    @tracing.traced("lpmp.engine.pass")
     def compute_pass(self, mode) -> None:
         """One iteration, routed by --reparametrizationType (LP_MP.h:869-887):
         partition -> staged block passes only; overlapping_partition ->
@@ -1095,6 +1097,7 @@ class Engine:
     def init_primal(self) -> dict:
         return self._init_primal(self.state)
 
+    @tracing.traced("lpmp.engine.primal_pass")
     def compute_pass_and_primal(self, mode, direction: Direction,
                                 restricted: bool = False) -> dict:
         """Rounding pass: fresh primal, interleaved with the sweep
@@ -1114,9 +1117,10 @@ class Engine:
                                       dtype=torch.float64)
         return total
 
+    @tracing.traced("lpmp.engine.lower_bound")
     def lower_bound(self) -> float:
         """Sum of the per-factor bounds, accumulated in float64."""
-        return float(self._bound_fn(self.state)) + self.constant
+        return tracing.fetch("engine.lower_bound", self._bound_fn(self.state)) + self.constant
 
     def _consistent_all(self, prim: dict) -> torch.Tensor:
         ok = torch.ones((), dtype=torch.bool, device=self.device)
@@ -1134,14 +1138,15 @@ class Engine:
                                     dtype=torch.float64)
         return cost, self._consistent_all(prim)
 
+    @tracing.traced("lpmp.engine.evaluate_primal")
     def evaluate_primal(self, prim: dict) -> float:
         cost, ok = self._evaluate_fn(self.state, prim)
-        if not bool(ok):
+        if not tracing.fetch("engine.evaluate_primal.ok", ok, bool):
             return float("inf")
-        return float(cost) + self.constant
+        return tracing.fetch("engine.evaluate_primal.cost", cost) + self.constant
 
     def check_primal_consistency(self, prim: dict) -> bool:
-        return bool(self._consistent_fn(prim))
+        return tracing.fetch("engine.check_primal_consistency", self._consistent_fn(prim), bool)
 
     # ------------------------------------------------------------------
     # inconsistent-region extraction (LP_MP.h:1638-1684)
@@ -1195,6 +1200,7 @@ class Engine:
         return {name: {k: v.clone() for k, v in block.items()}
                 for name, block in self.state.items()}
 
+    @tracing.traced("lpmp.engine.set_state")
     def set_state(self, state: dict) -> None:
         """Install ``state``: under ``use_jit`` copied into the state buffers
         where shapes and dtypes match, so the captured passes keep reading

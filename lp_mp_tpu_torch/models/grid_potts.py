@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..capture import Graphs
 from ..config import ReparametrizationMode, entry_device, real_dtype
 from ..ops.grid_kernels import (STATE_KEYS, grid_masks, phase_update, receive,
@@ -100,6 +101,7 @@ class GridPottsModel:
         # a copy: the captured calls write the state in place, never into the caller's array
         return torch.from_numpy(np.array(a, order="C")).to(self.device)
 
+    @tracing.traced("lpmp.grid.load_state")
     def load_state(self, state) -> "GridPottsModel":
         """Install a dense state dict (u/hm1/hm2/vm1/vm2 tensors, e.g. from
         ``convert.grid_state_from_numpy``) on this model's device and dtype."""
@@ -263,6 +265,7 @@ class GridPottsModel:
             self.state, _ = self._iterate_fn(self.state, mode=mode)
         return self
 
+    @tracing.traced("lpmp.grid.run_fast")
     def run_fast(self, n: int, mode="anisotropic", kernel="cuda"):
         """n iterations of the fused schedule.
 
@@ -276,12 +279,15 @@ class GridPottsModel:
         self.state, _ = self._fast_fn(self.state, n=n, mode=mode, kernel=kernel)
         return self
 
+    @tracing.traced("lpmp.grid.lower_bound")
     def lower_bound(self) -> float:
-        return float(self._lb_fn(self.state))
+        return tracing.fetch("grid.lower_bound", self._lb_fn(self.state))
 
+    @tracing.traced("lpmp.grid.round_primal")
     def round_primal(self, mode="damped_uniform"):
         self.state, (x, ub) = self._round_fn(self.state, mode=ReparametrizationMode.convert(mode))
-        return x.to(torch.int32).cpu().numpy(), float(ub)
+        return (tracing.fetch("grid.round_primal.labels", x.to(torch.int32), np.ndarray),
+                tracing.fetch("grid.round_primal.cost", ub))
 
 
 def grid_potts_edges(hcost, vcost):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import tracing
 from ..factors.potts import PAIRWISE_POTTS
 from ..factors.simplex import PAIRWISE_SIMPLEX, TERNARY_SIMPLEX, UNARY_SIMPLEX
 from ..graph import FactorGraph, FactorRef
@@ -235,7 +236,8 @@ class MrfConstructor:
 
 # -- primal extraction -------------------------------------------------------
 
+@tracing.traced("lpmp.mrf.labeling")
 def mrf_labeling(constructor: MrfConstructor, engine, prim) -> np.ndarray:
     """Per-variable labels from a primal pytree."""
-    x = prim[UNARY_SIMPLEX.name]["x"].cpu().numpy()
+    x = tracing.fetch("mrf.labeling", prim[UNARY_SIMPLEX.name]["x"], np.ndarray)
     return x[engine.f_local[constructor.unaries.fids()]].astype(np.int64)

@@ -31,6 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import tracing
 from .aux_tighten import AuxPasses
 from .config import Direction, entry_device
 from .engine import Engine
@@ -114,6 +115,7 @@ class Solver:
         return self._old_captures[1] + cur + self.aux.graph_stats()["capture_s"]
 
     # ------------------------------------------------------------------
+    @tracing.traced("lpmp.solver.build_engine")
     def build_engine(self) -> Engine:
         old = self.engine
         self.engine = Engine(self.graph, schedule_mode=self.schedule_mode,
@@ -139,6 +141,7 @@ class Solver:
         return self.engine
 
     # ------------------------------------------------------------------
+    @tracing.traced("lpmp.solver.register_primal")
     def register_primal(self, prim) -> float:
         """Keep best feasible primal (solver.hxx:321-340).  Constructors may
         veto primals the engine-level message checks cannot see (e.g.
@@ -155,6 +158,7 @@ class Solver:
             self.best_primal = prim
         return cost
 
+    @tracing.traced("lpmp.solver.tighten")
     def tighten(self, max_constraints: int) -> int:
         """Fan out to constructors implementing tighten() (solver.hxx:192-212).
 
@@ -227,44 +231,46 @@ class Solver:
             self.register_primal(p)
 
     # ------------------------------------------------------------------
+    @tracing.traced("lpmp.solver.solve")
     def solve(self) -> float:
         if self.engine is None:
             self.build_engine()
         c = self.visitor.begin(self.engine)
         while not (c.end or c.error):
-            # PreIterate + Iterate (solver.hxx:267-275)
-            if (self.tree_decomposition is not None
-                    and self.tree_decomposition_begin is not None
-                    and self.visitor.cur_iter >= self.tree_decomposition_begin):
-                self._tree_iterate(c)
+            with tracing.span("lpmp.solver.iteration"):
+                # PreIterate + Iterate (solver.hxx:267-275)
+                if (self.tree_decomposition is not None
+                        and self.tree_decomposition_begin is not None
+                        and self.visitor.cur_iter >= self.tree_decomposition_begin):
+                    self._tree_iterate(c)
+                    c = self.visitor.visit(c, self.lower_bound_, self.best_primal_cost)
+                    continue
+                if c.compute_primal:
+                    # MpRoundingSolver::Iterate (solver.hxx:387-397)
+                    restr = self.rounding == "restricted"
+                    prim = self.engine.compute_pass_and_primal(
+                        c.repam, Direction.forward, restricted=restr)
+                    self.register_primal(prim)
+                    prim = self.engine.compute_pass_and_primal(
+                        c.repam, Direction.backward, restricted=restr)
+                    self.register_primal(prim)
+                    # ProblemConstructorRoundingSolver hook (solver.hxx:402-481):
+                    # constructors with their own ComputePrimal also get a shot
+                    for ctor in self.constructors:
+                        if hasattr(ctor, "compute_primal"):
+                            self.register_primal(ctor.compute_primal(self.engine))
+                    if self.exact_rounding:
+                        self._exact_round(prim)
+                else:
+                    self.engine.compute_pass(c.repam)
+                if self.aux:
+                    self.aux.run(self.engine)
+                # PostIterate (solver.hxx:277-287)
+                if c.compute_lower_bound:
+                    self.lower_bound_ = self.engine.lower_bound() + self.aux.lower_bound()
+                if c.tighten:
+                    self.tighten(c.tighten_constraints)
                 c = self.visitor.visit(c, self.lower_bound_, self.best_primal_cost)
-                continue
-            if c.compute_primal:
-                # MpRoundingSolver::Iterate (solver.hxx:387-397)
-                restr = self.rounding == "restricted"
-                prim = self.engine.compute_pass_and_primal(
-                    c.repam, Direction.forward, restricted=restr)
-                self.register_primal(prim)
-                prim = self.engine.compute_pass_and_primal(
-                    c.repam, Direction.backward, restricted=restr)
-                self.register_primal(prim)
-                # ProblemConstructorRoundingSolver hook (solver.hxx:402-481):
-                # constructors with their own ComputePrimal also get a shot
-                for ctor in self.constructors:
-                    if hasattr(ctor, "compute_primal"):
-                        self.register_primal(ctor.compute_primal(self.engine))
-                if self.exact_rounding:
-                    self._exact_round(prim)
-            else:
-                self.engine.compute_pass(c.repam)
-            if self.aux:
-                self.aux.run(self.engine)
-            # PostIterate (solver.hxx:277-287)
-            if c.compute_lower_bound:
-                self.lower_bound_ = self.engine.lower_bound() + self.aux.lower_bound()
-            if c.tighten:
-                self.tighten(c.tighten_constraints)
-            c = self.visitor.visit(c, self.lower_bound_, self.best_primal_cost)
         ts = self._tree_state
         if ts is not None and ts["best_w"] is not None:
             # final write-back of the best decomposition (End semantics)
