@@ -6,8 +6,10 @@ Builds the CUDA grid kernels from lp_mp_tpu_torch/csrc with nvcc and holds
 each kernel against its plain torch version on the card: the dense phase and
 round kernels, the phase kernel under the v1 contract, and the sharded phase
 and round kernels on every shard at 1-4 shards (the phase kernels also at
-more labels than the round kernels take), and every kernel replayed from a
-CUDA graph, the phase kernels in every phase tuple.  Then drives the main paths,
+more labels than the round kernels take), the rounding kernels (the four
+label-writing phases of each mode and the cost pass: state bit-equal, labels
+equal, cost within 1e-12), and every kernel replayed from a CUDA graph, the
+phase kernels in every phase tuple.  Then drives the main paths,
 each with the launch counters set to 0 just before and read just after: the
 1000x1000, L=4 Potts grid through GridPottsModel.run_fast(kernel="cuda"),
 lower_bound and round_primal; the same grid through
@@ -24,7 +26,8 @@ and sharded phase kernels (1 shard and one window of 4) in every phase
 tuple by graph replay with their bounds, the dense one also at 8 labels
 and at an odd width, and the captured run_fast(20) in it/s for the
 anisotropic, uniform and damped_uniform modes, dense and at 1 and 4
-shards; the captured dense run_fast(20) must end without copying its
+shards; the rounding kernels per launch and one rounding pass against the
+plain ops; the captured dense run_fast(20) must end without copying its
 state.
 
 Then the generic engine path, plain PyTorch on the card in float32: a chain
@@ -166,8 +169,9 @@ from lp_mp_tpu_torch.phase_bench import (HBM_BYTES_PER_S, in_turns, launch_bound
                                          phase_bytes)
 from lp_mp_tpu_torch.engine_pull import pull_stats
 import lp_mp_tpu_torch
-from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, PHASE_PARAMS, RTOL, WIDE_LABEL_SHAPES,
-                                          check_grid_kernels, check_phase_v1, check_replays,
+from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, COST_RTOL, PHASE_PARAMS, RTOL,
+                                          WIDE_LABEL_SHAPES, check_grid_kernels, check_phase_v1,
+                                          check_replays, check_round_primal,
                                           check_sharded_grid_kernels)
 from lp_mp_tpu_torch.models.grid_potts import grid_potts_edges
 from lp_mp_tpu_torch.ops import _cuda_build
@@ -184,13 +188,24 @@ CHUNKS, CHUNK_ITERS = 15, 100
 # lower bound the JAX package reaches after 15 x run_fast(100, kernel="pallas")
 # on random_grid(1000, 1000, 4, seed=1): BENCH_r05.json, grid entry, target_lb
 JAX_TARGET_LB = -306284.281
+# the rounding against the JAX package: its GridPottsModel.round_primal("damped_uniform")
+# in float32 on the CPU after run_fast(ROUND_ITERS, "damped_uniform", kernel="xla") on
+# random_grid(*ROUND_GRID) (tests/test_torch_model_constants.py recomputes it): the
+# labels' digest and the cost, which the JAX package sums in float32 and the port in float64
+ROUND_GRID, ROUND_ITERS = (64, 80, 4, 3), 5
+JAX_ROUND = {"digest": "25004eb34fc50125", "ub": -1143.324951171875}
+ROUND_UB_RTOL = 1e-5
 SOURCE = "lp_mp_tpu_torch/csrc/grid_potts.cu"
 SHARD_RUNS = (1, 4)            # shards of the sharded main path, all on cuda:0
 REPLACES = {"round_update": "lp_mp_tpu/ops/pallas_grid.py:303",
             "phase_update": "lp_mp_tpu/ops/pallas_grid.py:161",
             "round_update_sharded": "lp_mp_tpu/ops/pallas_grid.py:536",
             "phase_update_sharded": "lp_mp_tpu/ops/pallas_grid.py:443",
-            "phase_update_v1": "lp_mp_tpu/ops/pallas_grid.py:72"}
+            "phase_update_v1": "lp_mp_tpu/ops/pallas_grid.py:72",
+            "round_phase_update": "none (jnp ops, lp_mp_tpu/models/grid_potts.py:297-317)",
+            "primal_cost": "none (jnp ops, lp_mp_tpu/models/grid_potts.py:310-317)"}
+# launches of one GridPottsModel.round_primal on a float32 model on the card
+ROUND_LAUNCHES = {"round_phase_update": 4, "primal_cost": 2}
 # the generic engine path: bench.py's chain (bench.py:334-394) and its exact
 # optimum as BASELINE_MEASURED.json records it
 CHAIN_N, CHAIN_L, CHAIN_SEED = 100_000, 8, 2
@@ -303,20 +318,35 @@ def phase_build() -> None:
     _cuda_build.library()
 
 
-def with_warmups(schedule: dict, graphs) -> dict:
+def with_warmups(schedule: dict, records) -> dict:
     """The launches a schedule of graph replays implies, plus the one
-    warm-up run of each graph that ``graphs`` (a ``capture.Graphs``)
-    captured: a warm-up launches the kernels that its capture records."""
+    warm-up run of each graph whose capture ``records`` holds (a
+    ``capture.Graphs``'s ``records``): a warm-up launches the kernels that
+    its capture records."""
     out = dict(schedule)
-    for rec in graphs.records:
+    for rec in records:
         for k, v in rec.launches.items():
             out[k] += v
     return out
 
 
+def labels_digest(x) -> str:
+    """Short digest of a grid's labels."""
+    return hashlib.sha256(np.ascontiguousarray(x, dtype=np.int32).tobytes()).hexdigest()[:16]
+
+
+def jax_round_case(device) -> tuple:
+    """(labels, ub) of a float32 model's round_primal on ``JAX_ROUND``'s case."""
+    h, w, labels, seed = ROUND_GRID
+    m = GridPottsModel(*random_grid(h, w, labels, seed=seed), device=device,
+                       dtype=torch.float32)
+    return m.run_fast(ROUND_ITERS, "damped_uniform", kernel="cuda").round_primal("damped_uniform")
+
+
 def phase_main_path() -> dict:
-    """The dense main path.  Returns its launch counts, its state after the
-    1500 iterations (before rounding), its bound and its rounded primal."""
+    """The dense main path.  Returns its launch counts (those of the
+    rounding included), its state after the 1500 iterations (before
+    rounding), its bound and its rounded primal."""
     u, hc, vc = random_grid(H, W, L, seed=SEED)
     m = GridPottsModel(u, hc, vc, device="cuda", dtype=torch.float32)
     prev = m.lower_bound()
@@ -330,7 +360,7 @@ def phase_main_path() -> dict:
         prev = lb
     counts = launch_counts()
     per_call = {"phase_update": 1, "round_update": CHUNK_ITERS // 2 + CHUNK_ITERS % 2}
-    expect = with_warmups({k: CHUNKS * per_call.get(k, 0) for k in counts}, m.jit)
+    expect = with_warmups({k: CHUNKS * per_call.get(k, 0) for k in counts}, m.jit.records)
     print(f"main: launches {counts}, schedule implies {expect} ({CHUNKS} replays of the "
           f"captured run_fast({CHUNK_ITERS}) and its warm-up)")
     if counts != expect:
@@ -352,11 +382,34 @@ def phase_main_path() -> dict:
         fail(f"kernel path bound {lb_cuda} and plain path bound {lb_torch} disagree")
 
     state = {k: v.clone() for k, v in m.state.items()}
+    n_graphs = len(m.jit.records)
+    reset_launch_counts()
     x, ub = m.round_primal()
+    round_counts = launch_counts()
+    expect = with_warmups({k: ROUND_LAUNCHES.get(k, 0) for k in round_counts},
+                          m.jit.records[n_graphs:])
+    print(f"main: round_primal launches {round_counts}, one replay of the captured rounding "
+          f"and its warm-up imply {expect}")
+    if round_counts != expect:
+        fail(f"round_primal launches {round_counts} differ from the kernels' {expect}")
+    _, (x_ref, ub_ref) = m._round_impl({k: v.clone() for k, v in state.items()},
+                                       m._mode_params("damped_uniform"))
+    same, err = bool((x == x_ref.cpu().numpy()).all()), rel(ub, float(ub_ref))
     print(f"main: round_primal ub {ub:.6f} >= lb {lb_cuda:.6f}, labels {x.shape} "
-          f"in [{x.min()}, {x.max()}]")
+          f"in [{x.min()}, {x.max()}]; against the plain rounding of the same state: labels "
+          f"equal {same}, ub rel diff {err:.1e} (limit {COST_RTOL})")
     if not (x.shape == (H, W) and 0 <= x.min() and x.max() < L and ub >= lb_cuda):
         fail(f"round_primal gave ub {ub} (lb {lb_cuda}) and labels {x.shape}")
+    if not (same and err <= COST_RTOL):
+        fail(f"round_primal's kernels and the plain rounding disagree (labels equal {same}, "
+             f"ub {ub} against {float(ub_ref)})")
+    xj, ubj = jax_round_case("cuda")
+    digest, err = labels_digest(xj), rel(ubj, JAX_ROUND["ub"])
+    print(f"main: round_primal at {'x'.join(map(str, ROUND_GRID[:3]))} after run_fast("
+          f"{ROUND_ITERS}): labels digest {digest} (JAX package {JAX_ROUND['digest']}), ub "
+          f"{ubj!r} (JAX package {JAX_ROUND['ub']!r}, rel diff {err:.1e}, limit {ROUND_UB_RTOL})")
+    if not (digest == JAX_ROUND["digest"] and err <= ROUND_UB_RTOL):
+        fail("round_primal disagrees with the JAX package's")
 
     for mode in ("uniform", "damped_uniform"):
         mk = GridPottsModel(u, hc, vc, device="cuda", dtype=torch.float32).run_fast(
@@ -369,6 +422,7 @@ def phase_main_path() -> dict:
               f"{rel(a, b):.3e}, max state diff {err:.3e}")
         if not (rel(a, b) <= 1e-5 and err <= 1e-4 * state_scale(mp.state)):
             fail(f"{mode}: kernel path and plain path disagree")
+    counts |= {k: round_counts[k] for k in ROUND_LAUNCHES}
     return {"counts": counts, "state": state, "lb": lb_cuda, "x": x, "ub": ub}
 
 
@@ -391,7 +445,7 @@ def phase_sharded_path(dense: dict) -> dict:
         counts = launch_counts()
         per_call = {"phase_update_sharded": 1,
                     "round_update_sharded": CHUNK_ITERS // 2 + CHUNK_ITERS % 2}
-        expect = with_warmups({k: n * CHUNKS * per_call.get(k, 0) for k in counts}, sm.jit)
+        expect = with_warmups({k: n * CHUNKS * per_call.get(k, 0) for k in counts}, sm.jit.records)
         print(f"sharded: {n} shards (Hl={sm.layout.Hl}): bound after {CHUNKS} x "
               f"run_fast({CHUNK_ITERS}) {prev:.6f}, rel diff to JAX {rel(prev, JAX_TARGET_LB):.3e} "
               f"(limit 1e-4), to the dense kernel path {rel(prev, dense['lb']):.3e}")
@@ -554,13 +608,28 @@ def phase_time(card: str) -> dict:
     return times, phase_kernel_times(card)
 
 
+def rounding_times(rec: dict) -> dict:
+    """The rounding wrappers' entries of the ``kernels`` line from
+    ``phase_bench.round_primal_times``'s record (``round_phase_update`` at
+    the slower of its two damped_uniform phase tuples)."""
+    phase = max((v for k, v in rec.items() if k.startswith("round_phase_update")),
+                key=lambda v: v["us"])
+    return {name: {"ms": v["us"] * 1e-3, "plain_ms": v["plain_us"] * 1e-3,
+                   "bound_ms": v["bound_us"] * 1e-3, "bound_by": v["bound_by"],
+                   "library_ms": None}
+            for name, v in (("round_phase_update", phase), ("primal_cost", rec["primal_cost"]))}
+
+
 def phase_kernel_times(card: str) -> dict:
     """The phase kernels in every phase tuple and the captured run_fast in
     every mode (``phase_bench``: graph replays of 20 launches, CUDA
     events, median of 3 in turns), and the state copies of the captured dense
     run_fast(20, "cuda")."""
     rec = {"phases": phase_bench.phase_times(lp_mp_tpu_torch, PHASE_PARAMS),
-           "run_fast": phase_bench.run_fast_times(lp_mp_tpu_torch)}
+           "run_fast": phase_bench.run_fast_times(lp_mp_tpu_torch),
+           "rounding": phase_bench.round_primal_times(lp_mp_tpu_torch)}
+    for line in phase_bench.rounding_lines(rec["rounding"]):
+        print(f"time: {line} (median of 3, CUDA events) on {card}")
     for name, per in rec["phases"].items():
         print(f"time: {name} by graph replay of {phase_bench.LAUNCHES} launches: " + ", ".join(
             f"{p} {v['us']:.1f} us ({100 * v['share']:.0f} % of {v['bound_us']:.1f})"
@@ -837,7 +906,7 @@ def phase_engine_grid() -> tuple:
     counts = launch_counts()
     expect = dict.fromkeys(counts, 0)
     expect.update(phase_update=1, round_update=ENGINE_GRID_PASSES // 2)
-    expect = with_warmups(expect, m.jit)
+    expect = with_warmups(expect, m.jit.records)
     if counts != expect:
         fail(f"GridPottsModel kernel path launches {counts} differ from the schedule's {expect}")
     mi = GridPottsModel(u, hc, vc, device="cuda", dtype=torch.float32)
@@ -1909,16 +1978,21 @@ def main() -> None:
     worst["phase_update_v1"] = check_phase_v1("cuda", shapes=shapes, log=print)
     worst.update(check_sharded_grid_kernels("cuda", shapes=shapes, log=print))
     print(f"check: all v1 and sharded launches within 1e-5*(1+max|x|); max abs err {worst}")
+    worst["primal_cost"] = check_round_primal("cuda", shapes=shapes, log=print)
+    worst["round_phase_update"] = 0.0       # bit-equal, or check_round_primal raised
+    print(f"check: the rounding kernels in every mode: state bit-equal, labels equal, cost "
+          f"within {COST_RTOL} relative; max rel err of the cost {worst['primal_cost']:.1e}")
     for k, err in check_replays("cuda", log=print).items():
-        worst[k] = max(worst[k], err)
-    print(f"check: every kernel replayed in a CUDA graph within 1e-5*(1+max|x|); max abs err "
-          f"{worst}")
+        worst[k] = max(worst.get(k, 0.0), err)
+    print(f"check: every kernel replayed in a CUDA graph within 1e-5*(1+max|x|) (the rounding "
+          f"kernels as above); max abs err {worst}")
     dense = phase_main_path()
     counts = dict(dense["counts"])
     sharded = phase_sharded_path(dense)
     counts.update({k: sharded[k] for k in ("phase_update_sharded", "round_update_sharded")})
     counts["phase_update_v1"] = phase_v1_path()["phase_update_v1"]
     times, phase_kernels = phase_time(card)
+    times.update(rounding_times(phase_kernels["rounding"]))
     kernels = [{"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
                 "launches": counts[k], "max_abs_err": worst[k], **times[k]}
                for k in REPLACES]

@@ -7,6 +7,11 @@
 //   grid_round_kernel<NR, false> <- _round_kernel_v2 (:303, wrapper round_update_v2; K1)
 //   grid_phase_kernel<true, .>   <- _phase_kernel_sharded (:443, wrapper phase_update_sharded; K4)
 //   grid_round_kernel<NR, true>  <- _round_kernel_sharded (:536, wrapper round_update_sharded; K3)
+// and, replacing no Pallas kernel, the grid model's primal rounding (the JAX
+// package rounds with jnp ops, lp_mp_tpu/models/grid_potts.py:297-317):
+//   grid_round_primal_kernel     a phase that also writes labels (round_phase_update)
+//   grid_primal_cost_kernel,     the labelling's cost in float64 (primal_cost)
+//   grid_primal_sum_kernel
 //
 // Dense layout, float32, labels outermost (see ops/grid_kernels.py):
 //   u [L,H,W]; hm1/hm2 [L,H,W-1], the two slots of h-edge (r,c)-(r,c+1),
@@ -121,6 +126,35 @@
 // persistent block per SM with two tile buffers; bulk copies (TMA) into
 // padded rows plus an in-place rearrangement into colour order; two warp
 // groups with their own buffers, one tile apart.
+// grid_round_primal_kernel: one colour phase of the primal rounding
+// (MpRoundingSolver semantics: GridPottsModel._round_impl), four launches a
+// rounding.  It is grid_phase_kernel's body with one more compile-time flag,
+// a label output: every cell of recv_color or send_color also writes the
+// argmin of its post-receive cost uu into an int32 [H, W] buffer (the first
+// minimum, or the first NaN, as torch.argmin picks), and every other cell
+// leaves its label as it was, so after the mode's four phases the buffer
+// holds the plain labelling.  It takes from K2 everything: the pair of
+// cells a thread, the all-in-registers path for L <= kPhaseRegLabels with
+// the generic label loop beside it, the 8-byte pairs, and the state out of
+// place, bit-equal to phase_update_ref.  The argmin runs on the uu values
+// the body already holds, so a phase that receives moves K2's 167.86 MB
+// plus the labels of the colour it updates, 2 MB (4 MB in 32-byte sectors),
+// at 1000x1000, L=4: 50.7 us at 3.35 TB/s; 72 us on the H100 (phase_bench.py),
+// 8 us more than K2 on the same phase.  grid_phase_kernel itself calls the
+// body with the flag off, whose branch adds nothing: K2, K4 and K5 compile
+// to the code they had (same SASS and registers).
+// grid_primal_cost_kernel then reads the final state once: per cell its
+// label, its u and own slots at that label and its right and lower
+// neighbours' labels, the other slot of those two edges at the neighbour's
+// label and their costs, summed in float64, one partial per block, folded
+// in a fixed tree order; grid_primal_sum_kernel (one block) folds the
+// partials the same way, so a state gives the same cost bit for bit on
+// every replay, with no atomics.  Its bytes at 1000x1000, L=4: the labels
+// (4 MB, each read by three cells, mostly from cache), the costs (8 MB) and
+// one label's value of each of the five state arrays (20 MB), but each
+// 4-byte value picked out of a 32-byte sector of its label plane, so up to
+// the five arrays' 80 MB in sectors: 32-92 MB, 10-27 us at 3.35 TB/s; 39 us
+// for both kernels on the H100, so it moves its sectors at about 2.4 TB/s.
 // Rounding: the products that feed an add go through __fmul_rn, which the
 // compiler never contracts into an FMA, so both kernels round like the plain
 // torch ops, one IEEE operation at a time.
@@ -241,10 +275,11 @@ __device__ __forceinline__ float* out_row(const OutRows& o, int r) {
 // oth and st the "other" slots of its four edges and their min statistics
 // (read only when it receives), ex which edges exist.  Same order of adds as
 // the plain version (right, left, down, up).
-__device__ __forceinline__ void phase_cell(const float (&own)[5], bool recv, const bool (&ex)[4],
-                                           const float (&oth)[4], const MinExcept (&st)[4],
-                                           const float (&cost)[4], float omega, float keep,
-                                           int L, float (&out)[5]) {
+// Returns the post-receive cost uu.
+__device__ __forceinline__ float phase_cell(const float (&own)[5], bool recv, const bool (&ex)[4],
+                                            const float (&oth)[4], const MinExcept (&st)[4],
+                                            const float (&cost)[4], float omega, float keep,
+                                            int L, float (&out)[5]) {
   float uu = own[0];
   float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   if (recv) {
@@ -260,6 +295,16 @@ __device__ __forceinline__ void phase_cell(const float (&own)[5], bool recv, con
   out[0] = uu * keep;
 #pragma unroll
   for (int e = 0; e < 4; ++e) out[1 + e] = (own[1 + e] - m[e]) + d;
+  return uu;
+}
+
+// One step of an argmin over the labels in order, as torch.argmin picks: the
+// first NaN, else the first minimum.
+__device__ __forceinline__ void argmin_step(float v, int l, float& best, int& x) {
+  if (l == 0 || (!isnan(best) && (isnan(v) || v < best))) {
+    best = v;
+    x = l;
+  }
 }
 
 // A thread updates a horizontal pair of cells, A = (r, c0) and B = (r, c0 + 1)
@@ -269,10 +314,12 @@ __device__ __forceinline__ void phase_cell(const float (&own)[5], bool recv, con
 // of the pair is loaded into registers before the first use: one round trip
 // to memory per thread, no loop and no branch.  kL == 0 takes any L: the
 // receiving cell's min statistics in a pass of their own, then one label at
-// a time.
-template <bool kSharded, int kL, bool kVec>
-__global__ void __launch_bounds__(kPhasePairs* kPhaseRows)
-    grid_phase_kernel(const Grid g, int recv_color, int send_color, float leave) {
+// a time.  With kLabelsOut (dense only) each cell of recv_color or
+// send_color also writes the argmin of its uu into labels [H, W].
+template <bool kSharded, int kL, bool kVec, bool kLabelsOut>
+__device__ __forceinline__ void phase_body(const Grid& g, int recv_color, int send_color,
+                                           float leave, int* labels) {
+  static_assert(!(kSharded && kLabelsOut), "labels are written on the dense grid only");
   const int c0 = 2 * (blockIdx.x * kPhasePairs + threadIdx.x), c1 = c0 + 1;
   const int r = blockIdx.y * kPhaseRows + threadIdx.y;
   const int L = kL > 0 ? kL : g.L, H = g.H, W = g.W, n = g.n;
@@ -352,11 +399,17 @@ __global__ void __launch_bounds__(kPhasePairs* kPhaseRows)
     o[2] = dnR ? __ldg(vdn.p + l * vdn.ls) : 0.0f;
     o[3] = upR ? __ldg(vup.p + l * vup.ls) : 0.0f;
   };
+  float bestA = 0.0f, bestB = 0.0f;  // kLabelsOut: the argmin so far of A's and B's uu
+  int xA = 0, xB = 0;
   auto update = [&](int l, const float (&a)[5], const float (&b)[5], const float (&o)[4],
                     const MinExcept (&st)[4]) {
     float outA[5], outB[5];
-    phase_cell(a, recvA, exA, o, st, cost, omegaA, keepA, L, outA);
-    phase_cell(b, recvB, exB, o, st, cost, omegaB, keepB, L, outB);
+    const float uuA = phase_cell(a, recvA, exA, o, st, cost, omegaA, keepA, L, outA);
+    const float uuB = phase_cell(b, recvB, exB, o, st, cost, omegaB, keepB, L, outB);
+    if constexpr (kLabelsOut) {
+      argmin_step(uuA, l, bestA, xA);
+      argmin_step(uuB, l, bestB, xB);
+    }
 #pragma unroll
     for (int k = 0; k < 5; ++k) {  // (a shard's slot of an absent vertical edge gets 0)
       float* const p = dst[k] + l * dls[k];
@@ -400,6 +453,89 @@ __global__ void __launch_bounds__(kPhasePairs* kPhaseRows)
       update(l, a, b, o, st);
     }
   }
+  if constexpr (kLabelsOut) {  // the cells this phase updates, as _round_impl's mask has them
+    int* const x = labels + (long)r * W + c0;
+    if (recv_color == colorA || send_color == colorA) x[0] = xA;
+    if (hasB && (recv_color == colorB || send_color == colorB)) x[1] = xB;
+  }
+}
+
+template <bool kSharded, int kL, bool kVec>
+__global__ void __launch_bounds__(kPhasePairs* kPhaseRows)
+    grid_phase_kernel(const Grid g, int recv_color, int send_color, float leave) {
+  phase_body<kSharded, kL, kVec, false>(g, recv_color, send_color, leave, nullptr);
+}
+
+template <int kL, bool kVec>
+__global__ void __launch_bounds__(kPhasePairs* kPhaseRows)
+    grid_round_primal_kernel(const Grid g, int recv_color, int send_color, float leave,
+                             int* labels) {
+  phase_body<false, kL, kVec, true>(g, recv_color, send_color, leave, labels);
+}
+
+// ---------------------------------------------------------------------------
+// the rounding's cost pass
+// ---------------------------------------------------------------------------
+constexpr int kCostThreads = 256;
+
+// Sums v over a block's threads in a fixed tree order; thread 0 gets the sum.
+__device__ __forceinline__ double block_sum(double v) {
+  __shared__ double part[kCostThreads];
+  part[threadIdx.x] = v;
+  __syncthreads();
+#pragma unroll
+  for (int s = kCostThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) part[threadIdx.x] += part[threadIdx.x + s];
+    __syncthreads();
+  }
+  return part[0];
+}
+
+// The cost of the labelling x of the dense grid, in float64, one partial
+// per block: per cell u[x] and, for its right and lower edge, its own slot
+// at x, the neighbour's slot at the neighbour's label and the Potts cost
+// where the labels differ.  A label outside [0, L) makes the cost NaN.
+__global__ void __launch_bounds__(kCostThreads)
+    grid_primal_cost_kernel(const Grid g, const int* x, double* partials) {
+  const int L = g.L, H = g.H, W = g.W;
+  const long cells = (long)H * W, sh = (long)H * (W - 1), sv = (long)(H - 1) * W;
+  const float *u = g.u.win, *hm1 = g.hm1.win, *hm2 = g.hm2.win, *vm1 = g.vm1.win;
+  const float *vm2 = g.vm2.win, *hc = g.hc.win, *vc = g.vc.win;
+  double acc = 0.0;
+  for (long i = (long)blockIdx.x * kCostThreads + threadIdx.x; i < cells;
+       i += (long)gridDim.x * kCostThreads) {
+    const int r = (int)(i / W), c = (int)(i - (long)r * W);
+    const bool right = c < W - 1, down = r < H - 1;
+    const int xi = __ldg(x + i);
+    const int xr = right ? __ldg(x + i + 1) : xi, xb = down ? __ldg(x + i + W) : xi;
+    if ((unsigned)xi >= (unsigned)L || (unsigned)xr >= (unsigned)L ||
+        (unsigned)xb >= (unsigned)L) {
+      acc = nan("");
+      continue;
+    }
+    acc += (double)__ldg(u + xi * cells + i);
+    if (right) {
+      const long e = (long)r * (W - 1) + c;
+      acc += (double)__ldg(hm1 + xi * sh + e);
+      acc += (double)__ldg(hm2 + xr * sh + e);
+      if (xi != xr) acc += (double)__ldg(hc + e);
+    }
+    if (down) {
+      acc += (double)__ldg(vm1 + xi * sv + i);
+      acc += (double)__ldg(vm2 + xb * sv + i);
+      if (xi != xb) acc += (double)__ldg(vc + i);
+    }
+  }
+  const double s = block_sum(acc);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
+}
+
+__global__ void __launch_bounds__(kCostThreads)
+    grid_primal_sum_kernel(const double* partials, int n, double* out) {
+  double acc = 0.0;
+  for (int i = threadIdx.x; i < n; i += kCostThreads) acc += partials[i];
+  const double s = block_sum(acc);
+  if (threadIdx.x == 0) *out = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -607,14 +743,20 @@ __global__ void __launch_bounds__(kRoundMaxThreads, 2) grid_round_kernel(const G
   }
 }
 
-template <bool kSharded, int kL, bool kVec>
+// A phase launch; with kLabelsOut the rounding's phase, which writes labels.
+template <bool kSharded, int kL, bool kVec, bool kLabelsOut>
 cudaError_t launch_phase_labels(const Grid& g, int recv_color, int send_color, float leave,
-                                cudaStream_t stream) {
+                                int* labels, cudaStream_t stream) {
   const int pairs = (g.W + 1) / 2;
   const dim3 block(kPhasePairs, kPhaseRows);
   const dim3 grid((pairs + kPhasePairs - 1) / kPhasePairs, (g.n + kPhaseRows - 1) / kPhaseRows);
-  grid_phase_kernel<kSharded, kL, kVec><<<grid, block, 0, stream>>>(g, recv_color, send_color,
-                                                                   leave);
+  if constexpr (kLabelsOut) {
+    grid_round_primal_kernel<kL, kVec><<<grid, block, 0, stream>>>(g, recv_color, send_color,
+                                                                   leave, labels);
+  } else {
+    grid_phase_kernel<kSharded, kL, kVec><<<grid, block, 0, stream>>>(g, recv_color, send_color,
+                                                                     leave);
+  }
   return cudaGetLastError();
 }
 
@@ -634,26 +776,37 @@ bool pairs_aligned(const Grid& g) {
   return true;
 }
 
-template <bool kSharded, int kL>
+template <bool kSharded, int kL, bool kLabelsOut>
 cudaError_t launch_phase_vec(const Grid& g, int recv_color, int send_color, float leave,
-                             cudaStream_t stream) {
+                             int* labels, cudaStream_t stream) {
   if (pairs_aligned(g)) {
-    return launch_phase_labels<kSharded, kL, true>(g, recv_color, send_color, leave, stream);
+    return launch_phase_labels<kSharded, kL, true, kLabelsOut>(g, recv_color, send_color, leave,
+                                                               labels, stream);
   }
-  return launch_phase_labels<kSharded, kL, false>(g, recv_color, send_color, leave, stream);
+  return launch_phase_labels<kSharded, kL, false, kLabelsOut>(g, recv_color, send_color, leave,
+                                                              labels, stream);
 }
 
-template <bool kSharded>
+template <bool kSharded, bool kLabelsOut = false>
 cudaError_t launch_phase(const Grid& g, int recv_color, int send_color, float leave,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int* labels = nullptr) {
   static_assert(kPhaseRegLabels == 4, "one instantiation per label count in registers");
   switch (g.L) {
-    case 1: return launch_phase_vec<kSharded, 1>(g, recv_color, send_color, leave, stream);
-    case 2: return launch_phase_vec<kSharded, 2>(g, recv_color, send_color, leave, stream);
-    case 3: return launch_phase_vec<kSharded, 3>(g, recv_color, send_color, leave, stream);
-    case 4: return launch_phase_vec<kSharded, 4>(g, recv_color, send_color, leave, stream);
+    case 1:
+      return launch_phase_vec<kSharded, 1, kLabelsOut>(g, recv_color, send_color, leave,
+                                                        labels, stream);
+    case 2:
+      return launch_phase_vec<kSharded, 2, kLabelsOut>(g, recv_color, send_color, leave,
+                                                        labels, stream);
+    case 3:
+      return launch_phase_vec<kSharded, 3, kLabelsOut>(g, recv_color, send_color, leave,
+                                                        labels, stream);
+    case 4:
+      return launch_phase_vec<kSharded, 4, kLabelsOut>(g, recv_color, send_color, leave,
+                                                        labels, stream);
     default:
-      return launch_phase_labels<kSharded, 0, false>(g, recv_color, send_color, leave, stream);
+      return launch_phase_labels<kSharded, 0, false, kLabelsOut>(g, recv_color, send_color, leave,
+                                                                 labels, stream);
   }
 }
 
@@ -798,6 +951,43 @@ int lpmp_grid_phase_update(const float* u, const float* hm1, const float* hm2, c
                             H, W);
   return launch_phase<false>(g, recv_color, send_color, leave,
                              static_cast<cudaStream_t>(stream));
+}
+
+// A rounding phase: lpmp_grid_phase_update's arguments, plus labels, the
+// int32 [H, W] labelling that the cells of recv_color and send_color write.
+int lpmp_grid_round_phase_update(const float* u, const float* hm1, const float* hm2,
+                                 const float* vm1, const float* vm2, const float* hc,
+                                 const float* vc, float* u_o, float* hm1_o, float* hm2_o,
+                                 float* vm1_o, float* vm2_o, int* labels, int L, int H, int W,
+                                 int recv_color, int send_color, float leave, int device,
+                                 void* stream) {
+  if (L < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Grid g = dense_grid(u, hm1, hm2, vm1, vm2, hc, vc, u_o, hm1_o, hm2_o, vm1_o, vm2_o, L,
+                            H, W);
+  return launch_phase<false, true>(g, recv_color, send_color, leave,
+                                   static_cast<cudaStream_t>(stream), labels);
+}
+
+// The cost of the labelling labels (int32 [H, W]) on the dense state, in
+// float64: work[1 .. n_work) takes one partial per block of the first
+// kernel (n_work - 1 blocks), work[0] their sum.
+int lpmp_grid_primal_cost(const float* u, const float* hm1, const float* hm2, const float* vm1,
+                          const float* vm2, const float* hc, const float* vc, const int* labels,
+                          double* work, int n_work, int L, int H, int W, int device,
+                          void* stream) {
+  if (L < 1 || H < 1 || W < 1 || n_work < 2) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Grid g = dense_grid(u, hm1, hm2, vm1, vm2, hc, vc, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, L, H, W);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  grid_primal_cost_kernel<<<n_work - 1, kCostThreads, 0, s>>>(g, labels, work + 1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  grid_primal_sum_kernel<<<1, kCostThreads, 0, s>>>(work + 1, n_work - 1, work);
+  return cudaGetLastError();
 }
 
 int lpmp_grid_round_update(const float* u, const float* hm1, const float* hm2, const float* vm1,

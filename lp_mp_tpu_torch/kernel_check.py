@@ -6,16 +6,21 @@ compared array by array with the plain torch version on the same inputs;
 the tolerance is ``1e-5 * (1 + max|x|)`` per array, for float32 (the
 kernels round each operation as the plain ops do, so the error is expected
 to be 0, but the bound leaves room for a compiler that contracts an FMA).
+The rounding kernels are held tighter (``check_round_primal``): state
+bit-equal, labels equal, the cost within ``COST_RTOL``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .ops.grid_kernels import (ROUND_MAX_LABELS, STATE_KEYS, phase_update, phase_update_ref,
-                               phase_update_sharded, phase_update_sharded_ref, phase_update_v1,
-                               round_update, round_update_ref, round_update_sharded,
-                               round_update_sharded_ref)
+from .config import ReparametrizationMode
+from .models.grid_potts import phase_tuples
+from .ops.grid_kernels import (ROUND_MAX_LABELS, STATE_KEYS, cost_work_size, phase_update,
+                               phase_update_ref, phase_update_sharded, phase_update_sharded_ref,
+                               phase_update_v1, primal_cost, primal_cost_ref, round_phase_ref,
+                               round_phase_update, round_update, round_update_ref,
+                               round_update_sharded, round_update_sharded_ref)
 from .parallel.grid import RowShards
 
 # (H, W, L): ragged shapes around the round kernel's tiles (T_r x T_c cells
@@ -42,6 +47,11 @@ WIDE_LABEL_SHAPES = ((11, 37, 40), (6, 65, 33))
 PHASE_PARAMS = ((2, 2, 0.0), (1, 1, 0.0), (0, 1, 0.0), (2, 0, 0.0),
                 (1, 1, 1.0), (2, 2, 1.0))
 RTOL = 1e-5
+# the rounding's cost against its plain version: float64 sums in two orders
+COST_RTOL = 1e-12
+# the modes whose four phases the rounding runs (GridPottsModel.round_primal)
+ROUND_MODES = (ReparametrizationMode.anisotropic, ReparametrizationMode.uniform,
+               ReparametrizationMode.damped_uniform)
 # shard counts of the sharded check: 3 leaves inert rows at the end of the
 # last shard for most shapes
 SHARD_COUNTS = (1, 2, 3, 4)
@@ -133,6 +143,56 @@ def check_phase_v1(device="cuda", shapes=CHECK_SHAPES, seed=0, log=print):
     return worst
 
 
+def _check_round(tag, state, labels, cost, ref_state, ref_labels, ref_cost):
+    """Raise AssertionError unless the rounding kernels' results equal the
+    plain ones (the cost within ``COST_RTOL``); returns the cost's relative error."""
+    for k in STATE_KEYS:
+        if not torch.equal(state[k], ref_state[k]):
+            err = float((state[k] - ref_state[k]).abs().max())
+            raise AssertionError(f"round_phase_update {tag}: {k} differs (max abs {err:.3e})")
+    if not torch.equal(labels, ref_labels.to(labels.dtype)):
+        n = int((labels != ref_labels.to(labels.dtype)).sum())
+        raise AssertionError(f"round_phase_update {tag}: {n} labels differ")
+    a, b = float(cost), float(ref_cost)
+    err = abs(a - b) / max(abs(b), 1e-300)
+    if not err <= COST_RTOL:        # also catches NaN
+        raise AssertionError(f"primal_cost {tag}: {a!r} against {b!r}, rel err {err:.3e}")
+    return err
+
+
+def check_round_primal(device="cuda", shapes=CHECK_SHAPES, seed=0, log=print):
+    """The rounding kernels (``round_phase_update``'s four phases of each
+    mode in ``ROUND_MODES``, then ``primal_cost``) against their plain
+    versions at ``shapes``, on random states and on small-integer states
+    (ties in the argmin, which must go to the first minimum).  After each
+    phase the state must be bit-equal and the labels equal; the cost must
+    lie within ``COST_RTOL``.  Raise AssertionError on the first
+    disagreement; returns the largest relative error of the cost."""
+    worst = 0.0
+    for i, (H, W, L) in enumerate(shapes):
+        errs = []
+        for ties in (False, True):
+            state, hc, vc = random_dense_state(H, W, L, seed + i, ties, device)
+            for mode in ROUND_MODES:
+                tag = f"{H}x{W}x{L}{' ties' if ties else ''} {mode.value}"
+                labels = torch.zeros((H, W), dtype=torch.int32, device=device)
+                ref_labels = labels.clone()
+                s = ref = state
+                for p in phase_tuples(mode):
+                    s = round_phase_update(s, hc, vc, *p, labels)
+                    torch.cuda.synchronize()
+                    ref, ref_labels = round_phase_ref(ref, hc, vc, *p, ref_labels)
+                    _check_round(f"{tag} {p}", s, labels, 0.0, ref, ref_labels, 0.0)
+                cost = primal_cost(s, hc, vc, labels)
+                torch.cuda.synchronize()
+                errs.append(_check_round(tag, s, labels, cost, ref, ref_labels,
+                                         primal_cost_ref(ref, hc, vc, ref_labels)))
+        worst = max(worst, *errs)
+        log(f"check round_primal {H}x{W}x{L}: {len(errs)} roundings of four phases, state "
+            f"and labels equal, cost rel err {max(errs):.1e}")
+    return worst
+
+
 def check_sharded_grid_kernels(device="cuda", shapes=CHECK_SHAPES, shard_counts=SHARD_COUNTS,
                                seed=0, log=print):
     """Every sharded kernel launch on every shard, at ``shapes`` and
@@ -182,9 +242,12 @@ def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=p
     ``shape`` (the main path's) and replayed on two inputs, each replay
     against the plain version on the same input: the phase kernels in every
     ``PHASE_PARAMS`` phase (the dense ones writing into given buffers, as
-    ``GridPottsModel.run_fast`` does), the sharded kernels over ``shards``
-    shards on ``device``, as ``ShardedGridPotts`` captures its sweeps.
-    Returns the max abs error per kernel wrapper name."""
+    ``GridPottsModel.run_fast`` does), the rounding kernels in the four
+    phases and cost pass of each ``ROUND_MODES`` mode (the second input with
+    ties; held as ``check_round_primal`` holds them), the sharded kernels
+    over ``shards`` shards on ``device``, as ``ShardedGridPotts`` captures
+    its sweeps.  Returns the max abs error per kernel wrapper name (the
+    relative error for ``primal_cost``)."""
     from .capture import Graphs
 
     H, W, L = shape
@@ -216,6 +279,20 @@ def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=p
                lambda s: round_update_ref(s, hc, vc, 2))]
     dense += [("phase_update_v1", p, lambda s, p=p: phase_update_v1(v1(p), s, hc, vc),
                lambda s, p=p: phase_update_ref(s, hc, vc, *p)) for p in ((0, 1, 0.0), (2, 2, 1.0))]
+    labels = torch.zeros((H, W), dtype=torch.int32, device=device)
+    work = torch.empty(cost_work_size(H, W), dtype=torch.float64, device=device)
+
+    def rounding(s, mode):
+        for p in phase_tuples(mode):
+            s = round_phase_update(s, hc, vc, *p, labels)
+        return {**s, "labels": labels, "cost": primal_cost(s, hc, vc, labels, work)}
+
+    def rounding_ref(s, mode):
+        x = torch.zeros((H, W), dtype=torch.int32, device=device)
+        for p in phase_tuples(mode):
+            s, x = round_phase_ref(s, hc, vc, *p, x)
+        return s, x, primal_cost_ref(s, hc, vc, x)
+
     sharded = [("phase_update_sharded", phase_update_sharded, phase_update_sharded_ref, p)
                for p in PHASE_PARAMS]
     sharded += [("round_update_sharded", round_update_sharded, round_update_sharded_ref, (2,))]
@@ -229,6 +306,16 @@ def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=p
             err = _compare(name, f"{H}x{W}x{L} {params} replay {k}", got, ref_fn(state),
                            lambda line: None)
             worst[name] = max(worst.get(name, 0.0), err)
+    for mode in ROUND_MODES:
+        g = jit.jit(lambda s, mode=mode: rounding(s, mode), f"round_primal {mode.value} replay")
+        for k in range(2):
+            state = random_dense_state(H, W, L, seed + 1 + k, k == 1, device)[0]
+            got = g(state)
+            torch.cuda.synchronize()
+            err = _check_round(f"{H}x{W}x{L} {mode.value} replay {k}", got, got["labels"],
+                               got["cost"], *rounding_ref(state, mode))
+            worst["round_phase_update"] = 0.0
+            worst["primal_cost"] = max(worst.get("primal_cost", 0.0), err)
     for name, kern, ref_fn, params in sharded:
         g = jit.jit(sweep(kern, params), f"{name}{params} sweep replay")
         for k in range(2):

@@ -32,6 +32,11 @@ graphs on the card and replayed (``run_fast(kernel="cuda")`` then replays
 its kernel launches as one graph), direct calls with the same buffer logic
 on the CPU.  The state then lives in fixed buffers that each call
 overwrites; ``load_state`` copies into them.
+
+``round_primal`` on a float32 model on the card runs through the rounding
+kernels (``round_phase_update``'s four label-writing phases, then
+``primal_cost``); CPU and float64 models take the plain ops
+(``_round_impl``), which give the same state and labels.
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ import torch
 from .. import tracing
 from ..capture import Graphs
 from ..config import ReparametrizationMode, entry_device, real_dtype
-from ..ops.grid_kernels import (STATE_KEYS, grid_masks, phase_update, receive,
+from ..ops.grid_kernels import (STATE_KEYS, cost_work_size, grid_masks, phase_update,
+                                primal_cost, primal_cost_ref, receive, round_phase_update,
                                 round_update, send)
 from ..ops.reductions import two_min
 
@@ -86,6 +92,7 @@ class GridPottsModel:
         self.vc = self._tensor(vcost)
         self.black, self.deg = grid_masks(H, W, self.device, self.dtype)
         self._scratch_sets = None
+        self._round_bufs = None
         self.jit = Graphs(self.device, enabled=use_jit, name="GridPottsModel")
         self.state = self.jit.adopt(self.state)
         self._iterate_fn = self.jit.jit(
@@ -93,9 +100,7 @@ class GridPottsModel:
             "iterate", donate=(0,))
         self._fast_fn = self.jit.jit(self._run_fast_any, "run_fast", donate=(0,))
         self._lb_fn = self.jit.jit(self._lower_bound_impl, "lower bound")
-        self._round_fn = self.jit.jit(
-            lambda s, mode: self._round_impl(s, self._mode_params(mode)), "round_primal",
-            donate=(0,))
+        self._round_fn = self.jit.jit(self._round_any, "round_primal", donate=(0,))
 
     def _tensor(self, a):
         # a copy: the captured calls write the state in place, never into the caller's array
@@ -197,12 +202,8 @@ class GridPottsModel:
             steps += [(round_update, (hc, vc, 2))] * (n // 2)
             if n % 2:
                 steps.append((round_update, (hc, vc, 1)))
-        elif mode in (ReparametrizationMode.uniform, ReparametrizationMode.damped_uniform):
-            leave = 0.0 if mode == ReparametrizationMode.uniform else 1.0
-            cyc = ((1, 1, leave), (2, 2, leave), (2, 2, leave), (1, 1, leave))
-            steps += [(phase_update, (hc, vc, *p)) for _ in range(n) for p in cyc]
         else:
-            raise NotImplementedError(f"{mode} not supported on grid model")
+            steps += [(phase_update, (hc, vc, *p)) for _ in range(n) for p in phase_tuples(mode)]
         scratch = self._scratch() if steps else None
         src = s
         for i, (fn, args) in enumerate(steps):
@@ -214,8 +215,9 @@ class GridPottsModel:
         return s
 
     def _scratch(self) -> list:
-        """Two state-shaped sets of buffers that ``run_fast``'s launches
-        write through, made at first use (under capture: in the warm-up)."""
+        """Two state-shaped sets of buffers that ``run_fast``'s and
+        ``round_primal``'s launches write through, made at first use (under
+        capture: in the warm-up)."""
         if self._scratch_sets is None:
             self._scratch_sets = [{k: torch.empty_like(v) for k, v in self.state.items()}
                                   for _ in range(2)]
@@ -229,6 +231,14 @@ class GridPottsModel:
         lb += torch.sum(_potts_min_pair(s["vm1"], s["vm2"], self.vc), dtype=f64)
         return lb
 
+    def _round_any(self, s, mode):
+        """(new state, (labels, ub)) of one rounding pass from ``s``: through
+        the rounding kernels for a float32 model on the card, else the
+        plain ops."""
+        if self.device.type == "cuda" and self.dtype == torch.float32:
+            return self._round_kernels(s, mode)
+        return self._round_impl(s, self._mode_params(mode))
+
     def _round_impl(self, s, params):
         """One rounding pass (MpRoundingSolver semantics): run the phases,
         labeling each cell by the argmin of its post-receive cost."""
@@ -238,22 +248,28 @@ class GridPottsModel:
             am = torch.argmin(s["u"], dim=0)
             x = torch.where((recv_mask + omega) > 0, am, x)
             s = self._send(s, omega)
+        return s, (x, primal_cost_ref(s, self.hc, self.vc, x))
 
-        def pick(t, labels):
-            return torch.gather(t, 0, labels[None])[0]
-
-        f64 = torch.float64
-        zero_h, zero_v = torch.zeros_like(self.hc), torch.zeros_like(self.vc)
-        ub = torch.sum(pick(s["u"], x), dtype=f64)
-        xl, xr = x[:, :-1], x[:, 1:]
-        ub += torch.sum(pick(s["hm1"], xl), dtype=f64)
-        ub += torch.sum(pick(s["hm2"], xr), dtype=f64)
-        ub += torch.sum(torch.where(xl != xr, self.hc, zero_h), dtype=f64)
-        xt, xb = x[:-1], x[1:]
-        ub += torch.sum(pick(s["vm1"], xt), dtype=f64)
-        ub += torch.sum(pick(s["vm2"], xb), dtype=f64)
-        ub += torch.sum(torch.where(xt != xb, self.vc, zero_v), dtype=f64)
-        return s, (x, ub)
+    def _round_kernels(self, s, mode):
+        """``_round_impl`` through the kernels: the mode's four phases, each
+        also writing the labels of the cells it updates, then the cost pass.
+        The launches ping-pong through ``_scratch`` and the last phase
+        writes ``s``'s own tensors, as in ``_run_fast_kernels``; the labels
+        (int32) and the cost's work buffer are the model's, made at first
+        use, so the call allocates nothing."""
+        if self._round_bufs is None:
+            self._round_bufs = (
+                torch.zeros((self.H, self.W), dtype=torch.int32, device=self.device),
+                torch.empty(cost_work_size(self.H, self.W), dtype=torch.float64,
+                            device=self.device))
+        labels, work = self._round_bufs
+        scratch = self._scratch()
+        phases = phase_tuples(mode)
+        src = s
+        for i, p in enumerate(phases):
+            dst = s if i == len(phases) - 1 else scratch[i % 2]
+            src = round_phase_update(src, self.hc, self.vc, *p, labels, out=dst)
+        return s, (labels, primal_cost(s, self.hc, self.vc, labels, work))
 
     # ------------------------------------------------------------------
     # public API
@@ -288,6 +304,18 @@ class GridPottsModel:
         self.state, (x, ub) = self._round_fn(self.state, mode=ReparametrizationMode.convert(mode))
         return (tracing.fetch("grid.round_primal.labels", x.to(torch.int32), np.ndarray),
                 tracing.fetch("grid.round_primal.cost", ub))
+
+
+def phase_tuples(mode) -> tuple:
+    """The (recv_color, send_color, leave) of the four colour phases of one
+    iteration of ``mode`` (uniform and damped modes; the rounding pass of
+    the anisotropic ones), as the kernel wrappers take them."""
+    if mode in _ANISOTROPIC:
+        return (0, 1, 0.0), (2, 0, 0.0), (0, 2, 0.0), (1, 0, 0.0)
+    if mode in (ReparametrizationMode.uniform, ReparametrizationMode.damped_uniform):
+        leave = 0.0 if mode == ReparametrizationMode.uniform else 1.0
+        return (1, 1, leave), (2, 2, leave), (2, 2, leave), (1, 1, leave)
+    raise NotImplementedError(f"{mode} not supported on grid model")
 
 
 def grid_potts_edges(hcost, vcost):

@@ -37,11 +37,15 @@ Colour, degree and edges come from the global row and the global ``H``.
 ``_round_kernel_v2`` (``:303``, wrapper ``round_update_v2``);
 ``phase_update_sharded`` and ``round_update_sharded`` replace
 ``_phase_kernel_sharded`` (``:443``) and ``_round_kernel_sharded`` (``:536``)
-on one shard's window.  All are bound by device-memory bandwidth: a phase
-reads and writes the five state arrays and reads the two cost arrays, with a
-few dozen flops per cell and label.  The round kernels fuse ``2 * n_rounds``
-phases into one pass through shared memory, so the bytes per iteration fall
-by that factor (design note in ``csrc/grid_potts.cu``).
+on one shard's window.  ``round_phase_update`` and ``primal_cost`` replace
+no Pallas kernel: they are the grid model's primal rounding (a phase that
+also writes each updated cell's argmin label, and the labelling's float64
+cost), which the JAX package writes as ``jnp`` ops.  All are bound by
+device-memory bandwidth: a phase reads and writes the five state arrays and
+reads the two cost arrays, with a few dozen flops per cell and label.  The
+round kernels fuse ``2 * n_rounds`` phases into one pass through shared
+memory, so the bytes per iteration fall by that factor (design note in
+``csrc/grid_potts.cu``).
 
 Each wrapper runs its plain version for CPU tensors and its CUDA kernel for
 CUDA tensors (float32 only, like the Pallas kernels); anything else raises.
@@ -125,14 +129,54 @@ def _color_mask(code: int, black):
     raise ValueError(f"colour code {code!r} is not 0 (none), 1 (black) or 2 (red)")
 
 
+def _phase_masks(state, recv_color: int, send_color: int, leave: float):
+    """(receive mask, send mask, omega, deg) [H, W] of one colour phase."""
+    L, H, W = state["u"].shape
+    black, deg = grid_masks(H, W, state["u"].device, state["u"].dtype)
+    sendm = _color_mask(send_color, black)
+    return (_color_mask(recv_color, black), sendm, sendm / torch.clamp(deg + leave, min=1.0),
+            deg)
+
+
 def phase_update_ref(state, hc, vc, recv_color: int, send_color: int,
                      leave: float = 0.0):
     """One colour phase, plain torch (the math of ``_phase_kernel_v2``)."""
-    L, H, W = state["u"].shape
-    black, deg = grid_masks(H, W, state["u"].device, state["u"].dtype)
-    recvm = _color_mask(recv_color, black)
-    omega = _color_mask(send_color, black) / torch.clamp(deg + leave, min=1.0)
+    recvm, _, omega, deg = _phase_masks(state, recv_color, send_color, leave)
     return send(receive(state, recvm, hc, vc), omega, deg)
+
+
+def round_phase_ref(state, hc, vc, recv_color: int, send_color: int, leave: float, labels):
+    """One colour phase of the primal rounding, plain torch: (the new state
+    of ``phase_update_ref``, ``labels`` with every cell of ``recv_color`` or
+    ``send_color`` set to the argmin of its post-receive cost, the rule of
+    ``GridPottsModel._round_impl``)."""
+    recvm, sendm, omega, deg = _phase_masks(state, recv_color, send_color, leave)
+    got = receive(state, recvm, hc, vc)
+    x = torch.where((recvm + sendm) > 0, torch.argmin(got["u"], dim=0).to(labels.dtype), labels)
+    return send(got, omega, deg), x
+
+
+def primal_cost_ref(state, hc, vc, labels):
+    """The cost of the labelling ``labels`` [H, W] on the dense ``state``,
+    plain torch: a float64 0-dim tensor, the seven float64 sums of
+    ``GridPottsModel._round_impl`` (unaries, the h-edges' two slots and
+    Potts costs, the v-edges')."""
+    x = labels.long()
+
+    def pick(t, lab):
+        return torch.gather(t, 0, lab[None])[0]
+
+    f64 = torch.float64
+    ub = torch.sum(pick(state["u"], x), dtype=f64)
+    xl, xr = x[:, :-1], x[:, 1:]
+    ub += torch.sum(pick(state["hm1"], xl), dtype=f64)
+    ub += torch.sum(pick(state["hm2"], xr), dtype=f64)
+    ub += torch.sum(torch.where(xl != xr, hc, torch.zeros_like(hc)), dtype=f64)
+    xt, xb = x[:-1], x[1:]
+    ub += torch.sum(pick(state["vm1"], xt), dtype=f64)
+    ub += torch.sum(pick(state["vm2"], xb), dtype=f64)
+    ub += torch.sum(torch.where(xt != xb, vc, torch.zeros_like(vc)), dtype=f64)
+    return ub
 
 
 def round_update_ref(state, hc, vc, n_rounds: int = 1):
@@ -339,15 +383,26 @@ def _run(fn_name: str, dev, ptr_args, out, *scalars):
     return out
 
 
-def _launch(fn_name: str, state, hc, vc, *scalars, out=None):
+def _launch(fn_name: str, state, hc, vc, *scalars, out=None, labels=None):
+    """A dense state-to-state launch; ``labels`` (the rounding's) goes after the outputs."""
     L, H, W = _check_cuda_args(state, hc, vc)
     if out is None:
         out = {k: torch.empty_like(state[k]) for k in STATE_KEYS}
     else:
-        _check_out(out, _dense_tensors(state, hc, vc))
+        named = _dense_tensors(state, hc, vc)
+        _check_out(out, named if labels is None else {**named, "labels": labels})
     ptrs = [state[k].data_ptr() for k in STATE_KEYS] + [hc.data_ptr(), vc.data_ptr()]
     ptrs += [out[k].data_ptr() for k in STATE_KEYS]
+    if labels is not None:
+        ptrs.append(labels.data_ptr())
     return _run(fn_name, state["u"].device, ptrs, out, L, H, W, *scalars)
+
+
+def _check_labels(labels, H: int, W: int):
+    """``labels`` is a contiguous int32 [H, W] tensor, or raise."""
+    if not isinstance(labels, torch.Tensor) or labels.dtype != torch.int32 \
+            or tuple(labels.shape) != (H, W) or not labels.is_contiguous():
+        raise ValueError(f"labels must be a contiguous int32 tensor of shape {(H, W)}")
 
 
 def _dense_tensors(state, hc, vc) -> dict:
@@ -511,8 +566,67 @@ def round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H
     return out
 
 
+def round_phase_update(state, hc, vc, recv_color: int, send_color: int, leave: float, labels,
+                       out=None):
+    """One colour phase of the primal rounding: returns the new state, as
+    ``phase_update`` (``out`` as there), and every cell of ``recv_color`` or
+    ``send_color`` writes the argmin of its post-receive cost into
+    ``labels`` (int32 [H, W], in place; ties to the first minimum, as
+    ``torch.argmin``); the other cells keep theirs (``round_phase_ref``)."""
+    dev = _device_of_tensors((*(state[k] for k in STATE_KEYS), hc, vc, labels))
+    _check_labels(labels, *state["u"].shape[1:])
+    _check_colours(recv_color, send_color)
+    if dev.type == "cpu":
+        new, x = round_phase_ref(state, hc, vc, recv_color, send_color, leave, labels)
+        out = _plain_into(out, {**_dense_tensors(state, hc, vc), "labels": labels}, new)
+        labels.copy_(x)
+        return out
+    out = _launch("lpmp_grid_round_phase_update", state, hc, vc, int(recv_color),
+                  int(send_color), float(leave), out=out, labels=labels)
+    round_phase_update.launches += 1
+    return out
+
+
+# the cost kernel's blocks: at most this many, each over at least 1024 cells
+COST_MAX_BLOCKS = 1024
+
+
+def cost_work_size(H: int, W: int) -> int:
+    """float64 elements of ``primal_cost``'s work buffer on the card: the
+    cost, then one partial per block of its first kernel."""
+    return 1 + max(1, min(-(-H * W // 1024), COST_MAX_BLOCKS))
+
+
+def primal_cost(state, hc, vc, labels, work=None):
+    """The cost of the labelling ``labels`` (int32 [H, W], each in [0, L))
+    on the dense ``state``, in float64: a 0-dim tensor.  On the card two
+    kernels, float64 partials per block into ``work`` (float64
+    [``cost_work_size(H, W)``]; made here where None, so a caller that
+    captures the call passes its own, made at the first, uncaptured call)
+    and their sum in a fixed order, so a state gives the same cost bit for
+    bit every time; the result is ``work[0]``.  The plain version
+    (``primal_cost_ref``) sums in another order.  A label outside [0, L)
+    makes the card's cost NaN."""
+    given = () if work is None else (work,)
+    dev = _device_of_tensors((*(state[k] for k in STATE_KEYS), hc, vc, labels, *given))
+    _check_labels(labels, *state["u"].shape[1:])
+    if dev.type == "cpu":
+        return primal_cost_ref(state, hc, vc, labels)
+    L, H, W = _check_cuda_args(state, hc, vc)
+    n = cost_work_size(H, W)
+    if work is None:
+        work = torch.empty(n, dtype=torch.float64, device=labels.device)
+    elif work.dtype != torch.float64 or tuple(work.shape) != (n,) or not work.is_contiguous():
+        raise ValueError(f"work must be a contiguous float64 tensor of shape {(n,)}")
+    ptrs = [state[k].data_ptr() for k in STATE_KEYS]
+    ptrs += [hc.data_ptr(), vc.data_ptr(), labels.data_ptr(), work.data_ptr()]
+    _run("lpmp_grid_primal_cost", dev, ptrs, None, n, L, H, W)
+    primal_cost.launches += 2
+    return work[0]
+
+
 KERNEL_WRAPPERS = (phase_update, round_update, phase_update_v1, phase_update_sharded,
-                   round_update_sharded)
+                   round_update_sharded, round_phase_update, primal_cost)
 
 
 def reset_launch_counts() -> None:

@@ -17,7 +17,12 @@ On one NVIDIA GPU, at the main path's 1000x1000 grid with 4 labels:
 - ``GridPottsModel.run_fast(20, mode, kernel="cuda")`` and
   ``ShardedGridPotts.run_fast(20, mode)`` at 1 and 4 shards on ``cuda:0``,
   captured (``use_jit``, the default), for the anisotropic, uniform and
-  damped_uniform modes.
+  damped_uniform modes;
+- the rounding's kernels, ``round_phase_update`` in each damped_uniform
+  phase tuple and ``primal_cost``, their plain versions, and one rounding
+  pass of ``GridPottsModel`` (``round_primal``'s captured call, without the
+  labels' copy to the host) on the kernels and on the plain ops (where the
+  package has them).
 
 A kernel's time is one replay of a CUDA graph that holds ``LAUNCHES``
 back-to-back launches, each on the state the one before wrote, over CUDA
@@ -127,17 +132,21 @@ def launch_bound(in_bytes: int, out_bytes: int, updates: int) -> tuple:
 
 def sass_counts(pkg, so) -> dict:
     """{phase kernel: [instructions, branches]} of a built library by
-    ``cuobjdump -sass`` (the one beside nvcc), padding NOPs left out."""
+    ``cuobjdump -sass`` (the one beside nvcc), padding NOPs left out; the
+    rounding's label-writing phase kernel counts as a phase kernel."""
     tool = Path(pkg.ops._cuda_build.nvcc_path()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     out, name = {}, None
     for ln in text.splitlines():
-        m = re.search(r"Function : \S*?\d(grid_[a-z]+_kernel)I(\w*?)EEvNS", ln)
+        if "Function :" in ln:      # a new function: counted below only if it is a phase kernel
+            name = None
+        m = re.search(r"Function : \S*?\d(grid_[a-z_]+?_kernel)I(\w*?)EEvNS", ln)
         if m:
             targs = ", ".join(("false", "true")[int(v)] if t == "b" else v
                               for t, v in re.findall(r"L([bi])(\d+)E", m.group(2)))
-            name = f"{m.group(1)}<{targs}>" if "phase" in m.group(1) else None
+            phase = "phase" in m.group(1) or "round_primal" in m.group(1)
+            name = f"{m.group(1)}<{targs}>" if phase else None
             if name:
                 out[name] = [0, 0]
             continue
@@ -171,12 +180,12 @@ def captured_chain(step, state, launches: int = LAUNCHES):
 
 def _entry(ms: float, in_out: tuple, updates: int) -> dict:
     us = ms * 1e3 / LAUNCHES
-    b = launch_bound(*in_out, updates)[0] * 1e3
-    return {"us": us, "bound_us": b, "share": b / us}
+    b, by = launch_bound(*in_out, updates)
+    return {"us": us, "bound_us": b * 1e3, "share": b * 1e3 / us, "bound_by": by}
 
 
 def phase_times(pkg, params_list) -> dict:
-    """{kernel: {str(params): {"us", "bound_us", "share"}}} per launch of
+    """{kernel: {str(params): {"us", "bound_us", "share", "bound_by"}}} per launch of
     the dense, v1, 1-shard and 4-shard-window phase kernels, and of the
     dense one at each of ``OTHER_SHAPES``."""
     import torch
@@ -239,6 +248,51 @@ def phase_times(pkg, params_list) -> dict:
     return out
 
 
+def round_primal_times(pkg) -> dict:
+    """Per launch of the rounding's kernels at the main path's grid, by graph
+    replay as ``phase_times`` (``round_phase_update`` in each damped_uniform
+    phase tuple, ``primal_cost`` a call, its two kernels): {name: {"us",
+    "bound_us", "share", "bound_by", "plain_us"}} with the plain version's time (CUDA
+    events, median of 3 in turns with the kernel); and "round_primal": {"ms",
+    "plain_ms"}, one rounding pass of the model, the captured call on the
+    kernels against the plain ops, without the labels' copy to the host.
+    The bounds count the phase's bytes (``phase_bytes``) plus the labels of
+    the colour it updates, and for the cost pass the labels, the costs and
+    one value per cell of each state array."""
+    import torch
+    gk = pkg.ops.grid_kernels
+    mode = pkg.config.ReparametrizationMode.damped_uniform
+    u, hc_np, vc_np = pkg.random_grid(H, W, L, seed=SEED)
+    m = pkg.GridPottsModel(u, hc_np, vc_np, device="cuda", dtype=torch.float32)
+    state = {k: v.clone() for k, v in m.run_fast(3, "uniform", kernel="cuda").state.items()}
+    hc, vc = m.hc, m.vc
+    labels = torch.zeros((H, W), dtype=torch.int32, device="cuda")
+    work = torch.empty(gk.cost_work_size(H, W), dtype=torch.float64, device="cuda")
+    half_labels = nbytes([labels]) // 2
+    out = {}
+    for p in pkg.models.grid_potts.phase_tuples(mode)[:2]:
+        t = in_turns({"kernel": captured_chain(
+                          lambda s, p=p: gk.round_phase_update(s, hc, vc, *p, labels), state),
+                      "plain": lambda p=p: gk.round_phase_ref(state, hc, vc, *p, labels)})
+        ins, outs = phase_bytes(list(state.values()), [hc, vc], p[0])
+        out[f"round_phase_update {p}"] = dict(
+            _entry(t["kernel"], (ins, outs + half_labels), H * W * L // 2),
+            plain_us=t["plain"] * 1e3)
+    picked = nbytes([labels, hc, vc]) + sum(nbytes([v[0]]) for v in state.values())
+    t = in_turns({"kernel": captured_chain(
+                      lambda s: (gk.primal_cost(s, hc, vc, labels, work), s)[1], state),
+                  "plain": lambda: gk.primal_cost_ref(state, hc, vc, labels)})
+    out["primal_cost"] = dict(_entry(t["kernel"], (picked, 0), 0), plain_us=t["plain"] * 1e3)
+    params = m._mode_params(mode)
+    t = in_turns({"kernel": lambda: m._round_fn(m.state, mode=mode),
+                  "plain": lambda: m._round_impl({k: v.clone() for k, v in state.items()},
+                                                 params)})
+    out["round_primal"] = {"ms": t["kernel"], "plain_ms": t["plain"]}
+    del m
+    gc.collect()
+    return out
+
+
 def run_fast_times(pkg) -> dict:
     """{config: {mode: it/s}} of the captured run_fast(RUN_FAST_N)."""
     import torch
@@ -286,6 +340,8 @@ def main() -> None:
     rec = {"package": pkg.__file__, "card": card, "build_s": build.seconds, "ptxas": ptxas,
            "sass": sass_counts(pkg, build.path),
            "phases": phase_times(pkg, PHASE_PARAMS), "run_fast": run_fast_times(pkg)}
+    if hasattr(pkg.ops.grid_kernels, "round_phase_update"):
+        rec["rounding"] = round_primal_times(pkg)
     rec["seconds"] = time.perf_counter() - t0
     tag = os.path.dirname(os.path.dirname(pkg.__file__))
     for name, (ins, bra) in rec["sass"].items():
@@ -297,7 +353,21 @@ def main() -> None:
     for name, per in rec["run_fast"].items():
         print(f"{tag} run_fast({RUN_FAST_N}) {name}: " + ", ".join(
             f"{mode} {v['its']:.1f} it/s ({v['ms']:.3f} ms)" for mode, v in per.items()))
+    for line in rounding_lines(rec.get("rounding", {})):
+        print(f"{tag} {line} on {card}")
     print(json.dumps(rec))
+
+
+def rounding_lines(rec: dict) -> list:
+    """``round_primal_times``'s record as lines of text."""
+    lines = [f"{name}: {v['us']:.1f} us a launch ({100 * v['share']:.0f} % of "
+             f"{v['bound_us']:.1f}), plain {v['plain_us']:.1f} us, at {H}x{W} L={L}"
+             for name, v in rec.items() if name != "round_primal"]
+    if "round_primal" in rec:
+        v = rec["round_primal"]
+        lines.append(f"round_primal, one captured pass: {v['ms'] * 1e3:.1f} us on the kernels, "
+                     f"{v['plain_ms'] * 1e3:.1f} us on the plain ops")
+    return lines
 
 
 if __name__ == "__main__":

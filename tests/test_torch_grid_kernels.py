@@ -170,3 +170,71 @@ def test_failed_load_raises(tmp_path):
     bad.write_text("")
     with pytest.raises(RuntimeError, match="loading the grid kernel library"):
         _cuda_build.load(bad)
+
+
+ROUND_SHAPES = [(8, 8, 4), (9, 1, 3), (1, 60, 4), (7, 2, 4), (13, 57, 5)]
+
+
+def seven_sums(s, hc, vc, x):
+    """The rounding's cost as ``GridPottsModel._round_impl`` summed it before
+    the rounding kernels: seven gathered float64 sums."""
+    def pick(t, labels):
+        return torch.gather(t, 0, labels[None])[0]
+
+    f64 = torch.float64
+    ub = torch.sum(pick(s["u"], x), dtype=f64)
+    xl, xr = x[:, :-1], x[:, 1:]
+    ub += torch.sum(pick(s["hm1"], xl), dtype=f64)
+    ub += torch.sum(pick(s["hm2"], xr), dtype=f64)
+    ub += torch.sum(torch.where(xl != xr, hc, torch.zeros_like(hc)), dtype=f64)
+    xt, xb = x[:-1], x[1:]
+    ub += torch.sum(pick(s["vm1"], xt), dtype=f64)
+    ub += torch.sum(pick(s["vm2"], xb), dtype=f64)
+    ub += torch.sum(torch.where(xt != xb, vc, torch.zeros_like(vc)), dtype=f64)
+    return ub
+
+
+@pytest.mark.parametrize("H,W,L", ROUND_SHAPES)
+@pytest.mark.parametrize("mode", ["anisotropic", "uniform", "damped_uniform"])
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rounding_wrappers_match_the_plain_rounding(H, W, L, mode, ties, dtype):
+    """The rounding wrappers' plain versions (``round_phase_update``'s four
+    phases of the mode, then ``primal_cost``) against the model's plain
+    ``_round_impl`` on the same state: state, labels and cost exactly, and
+    the cost equal to the seven sums the model took before the kernels."""
+    from lp_mp_tpu_torch import GridPottsModel
+    from lp_mp_tpu_torch.config import ReparametrizationMode
+    from lp_mp_tpu_torch.models.grid_potts import phase_tuples
+    mode = ReparametrizationMode.convert(mode)
+    state, hc, vc = random_dense_state(H, W, L, seed=H * W + L, ties=ties, dtype=dtype)
+    m = GridPottsModel(np.moveaxis(state["u"].numpy(), 0, -1), hc.numpy(), vc.numpy(),
+                       device="cpu", dtype=dtype, use_jit=False).load_state(state)
+    ref, (x, ub) = m._round_impl({k: v.clone() for k, v in state.items()}, m._mode_params(mode))
+    gk.reset_launch_counts()
+    labels = torch.zeros((H, W), dtype=torch.int32)
+    s = state
+    for p in phase_tuples(mode):
+        s = gk.round_phase_update(s, m.hc, m.vc, *p, labels)
+    cost = gk.primal_cost(s, m.hc, m.vc, labels)
+    for k in gk.STATE_KEYS:
+        assert torch.equal(s[k], ref[k]), k
+    assert torch.equal(labels.long(), x)
+    assert cost.dtype == torch.float64 and float(cost) == float(ub)
+    assert float(ub) == float(seven_sums(ref, m.hc, m.vc, x))
+    assert set(gk.launch_counts().values()) == {0}
+
+
+def test_rounding_wrappers_refuse_what_no_route_takes():
+    state, hc, vc = random_dense_state(5, 6, 2, seed=0)
+    with pytest.raises(ValueError, match="int32"):
+        gk.round_phase_update(state, hc, vc, 1, 1, 1.0, torch.zeros((5, 6), dtype=torch.int64))
+    with pytest.raises(ValueError, match="int32"):
+        gk.primal_cost(state, hc, vc, torch.zeros((5, 7), dtype=torch.int32))
+    with pytest.raises(ValueError, match="colour code"):
+        gk.round_phase_update(state, hc, vc, 3, 1, 1.0, torch.zeros((5, 6), dtype=torch.int32))
+    with pytest.raises(ValueError, match="several devices"):
+        gk.primal_cost(state, hc, vc, torch.zeros((5, 6), dtype=torch.int32).to("meta"))
+    assert gk.cost_work_size(5, 6) == 2
+    assert gk.cost_work_size(1000, 1000) == 1 + 977
+    assert gk.cost_work_size(4000, 4000) == 1 + gk.COST_MAX_BLOCKS

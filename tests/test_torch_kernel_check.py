@@ -64,11 +64,42 @@ def test_replays_cover_every_phase_tuple(no_sync):
     logs = []
     worst = kc.check_replays("cpu", shape=(13, 66, 3), shards=3, log=logs.append)
     assert worst == dict.fromkeys(("phase_update", "round_update", "phase_update_v1",
-                                   "phase_update_sharded", "round_update_sharded"), 0.0)
+                                   "round_phase_update", "primal_cost", "phase_update_sharded",
+                                   "round_update_sharded"), 0.0)
     # one graph per phase tuple of each phase kernel, two of the v1 contract,
-    # one per round kernel; two replays each
-    n_graphs = 2 * len(kc.PHASE_PARAMS) + 2 + 2
+    # one per round kernel, one rounding per mode; two replays each
+    n_graphs = 2 * len(kc.PHASE_PARAMS) + 2 + 2 + len(kc.ROUND_MODES)
     assert f"{n_graphs} graphs, {2 * n_graphs} replays" in logs[-1]
+
+
+@pytest.mark.parametrize("shapes", [kc.WIDE_LABEL_SHAPES, ((10, 63, 4), (9, 1, 3), (1, 60, 4))],
+                         ids=["wide labels", "edges of the grid"])
+def test_round_primal_check_covers_every_mode(no_sync, shapes):
+    """``check_round_primal`` holds the rounding wrappers against their plain
+    versions in every mode, on random and on tied states, one log line per
+    shape; on the CPU both sides are the plain version, so the cost's error
+    is 0 and nothing launches."""
+    gk.reset_launch_counts()
+    logs = []
+    assert kc.check_round_primal("cpu", shapes=shapes, log=logs.append) == 0.0
+    assert len(logs) == len(shapes)
+    assert all(f"{2 * len(kc.ROUND_MODES)} roundings" in line for line in logs)
+    assert set(gk.launch_counts().values()) == {0}
+
+
+def test_round_primal_check_catches_a_wrong_label(no_sync, monkeypatch):
+    """A rounding phase that writes one wrong label fails the check."""
+    real = gk.round_phase_update
+
+    def wrong(*args, **kw):
+        out = real(*args, **kw)
+        labels = args[6]
+        labels[0, 0] = (labels[0, 0] + 1) % args[0]["u"].shape[0]
+        return out
+
+    monkeypatch.setattr(kc, "round_phase_update", wrong)
+    with pytest.raises(AssertionError, match="labels differ"):
+        kc.check_round_primal("cpu", shapes=((6, 7, 3),), log=lambda line: None)
 
 
 def test_phase_bench_imports_no_jax():

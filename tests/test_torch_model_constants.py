@@ -1,8 +1,8 @@
 """The JAX package's values that ``chip_smoke.py`` holds the card's graph
 matching, tomography, tree, exact-oracle and command-line runs against
 (``JAX_TOMO10X32``, ``JAX_QAP16``, ``JAX_TREES``, ``JAX_TREE_SOLVER``,
-``JAX_ORACLES``, ``JAX_CLI``), recomputed from the JAX package on the CPU
-in float32.
+``JAX_ORACLES``, ``JAX_CLI``) and the grid rounding (``JAX_ROUND``),
+recomputed from the JAX package on the CPU in float32.
 
 Each case runs in a subprocess of its own: float32 without
 ``jax_enable_x64`` (which this suite's conftest turns on), no persistent
@@ -44,6 +44,15 @@ config.set_dtype("float32")
 s = Solver(visitor=StandardVisitor(max_iter=cs.MODEL_ITERS), schedule_mode="auto",
            pass_style="auto")
 out = {}
+if sys.argv[1] == "grid_round":
+    import numpy as np
+    from lp_mp_tpu.models.grid_potts import GridPottsModel, random_grid
+    h, w, labels, seed = cs.ROUND_GRID
+    m = GridPottsModel(*random_grid(h, w, labels, seed=seed), dtype=np.float32)
+    x, ub = m.run_fast(cs.ROUND_ITERS, mode="damped_uniform", kernel="xla").round_primal(
+        "damped_uniform")
+    print(json.dumps({"digest": cs.labels_digest(x), "ub": ub}))
+    sys.exit(0)
 if sys.argv[1] in ("chains", "chains_fw", "tree_solver"):
     un, pairs, pw = cs.mrf_304_instance()
     mrf = s.add_constructor(MrfConstructor, pairwise_rep="dense")
@@ -157,3 +166,16 @@ def test_chip_smoke_tree_constants_are_the_jax_packages(case, want):
             assert got[k] == pytest.approx(v, rel=REL), (k, got[k], v)
         else:
             assert got[k] == v, (k, got[k], v)
+
+
+def test_chip_smoke_round_constant_is_the_jax_packages():
+    """``JAX_ROUND``, which the card's rounding kernels are held to
+    (``chip_smoke``'s main path, tests/test_torch_grid_cuda.py), is the JAX
+    package's float32 rounding; the port's plain rounding on the CPU gives
+    the same labels and the cost within ``ROUND_UB_RTOL``."""
+    got = jax_float32("grid_round")
+    assert got["digest"] == chip_smoke.JAX_ROUND["digest"]
+    assert got["ub"] == pytest.approx(chip_smoke.JAX_ROUND["ub"], rel=REL)
+    x, ub = chip_smoke.jax_round_case("cpu")
+    assert chip_smoke.labels_digest(x) == chip_smoke.JAX_ROUND["digest"]
+    assert ub == pytest.approx(chip_smoke.JAX_ROUND["ub"], rel=chip_smoke.ROUND_UB_RTOL)
