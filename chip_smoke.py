@@ -169,10 +169,10 @@ from lp_mp_tpu_torch.phase_bench import (HBM_BYTES_PER_S, in_turns, launch_bound
                                          phase_bytes)
 from lp_mp_tpu_torch.engine_pull import pull_stats
 import lp_mp_tpu_torch
-from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, COST_RTOL, PHASE_PARAMS, RTOL,
-                                          WIDE_LABEL_SHAPES, check_grid_kernels, check_phase_v1,
-                                          check_replays, check_round_primal,
-                                          check_sharded_grid_kernels)
+from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, COST_RTOL, PHASE_PARAMS,
+                                          ROUND_GEOMETRIES, RTOL, WIDE_LABEL_SHAPES,
+                                          check_grid_kernels, check_phase_v1, check_replays,
+                                          check_round_primal, check_sharded_grid_kernels)
 from lp_mp_tpu_torch.models.grid_potts import grid_potts_edges
 from lp_mp_tpu_torch.ops import _cuda_build
 from lp_mp_tpu_torch.ops.grid_kernels import (launch_counts, phase_update, phase_update_ref,
@@ -579,10 +579,15 @@ def phase_time(card: str) -> dict:
     updates = {"phase_update": cells // 2, "phase_update_v1": cells // 2,
                "phase_update_sharded": cells // 2, "round_update": 2 * cells,
                "round_update_sharded": 2 * cells}
-    tile = round_tile(L, 2)
-    print(f"time: round kernel tile at L={L}, n_rounds=2: {tile['rows']} x {tile['cols']} cells "
-          f"written per block, {tile['rows_loaded']} x {tile['cols_loaded']} loaded, "
-          f"{tile['threads']} threads, {tile['smem']} B of shared memory")
+    geometries = (("K1", round_tile(L, 2, H, W)),
+                  ("K3, 1 shard", round_tile(L, 2, H, W, sharded=True)))
+    for what, t in geometries:
+        print(f"time: round kernel geometry ({what}) at {H}x{W}, L={L}, n_rounds=2: segments of "
+              f"{t['rows']} rows in strips of {t['cols']} columns written per block "
+              f"({t['rows_loaded']} rows streamed, {t['cols_loaded']} columns loaded), a ring of "
+              f"{t['ring_rows']} rows with {t['bands_ahead']} bands of {t['band_rows']} in flight, "
+              f"{t['threads']} threads, {t['smem']} B of shared memory, {t['blocks_per_sm']} "
+              f"blocks per SM, {t['strips']} x {t['segments']} blocks in {t['waves']} wave(s)")
     times = {}
     for name, kern, plain in (
             ("phase_update", lambda: phase_update(s, hcc, vcc, 0, 1, 0.0),
@@ -1974,10 +1979,12 @@ def main() -> None:
     phase_build()
     shapes = CHECK_SHAPES + WIDE_LABEL_SHAPES
     worst = check_grid_kernels("cuda", shapes=shapes, log=print)
-    print(f"check: all launches within 1e-5*(1+max|x|); max abs err {worst}")
+    print(f"check: all launches within 1e-5*(1+max|x|), the round kernel bit-equal at each "
+          f"geometry of {ROUND_GEOMETRIES}; max abs err {worst}")
     worst["phase_update_v1"] = check_phase_v1("cuda", shapes=shapes, log=print)
     worst.update(check_sharded_grid_kernels("cuda", shapes=shapes, log=print))
-    print(f"check: all v1 and sharded launches within 1e-5*(1+max|x|); max abs err {worst}")
+    print(f"check: all v1 and sharded launches within 1e-5*(1+max|x|), the sharded round kernel "
+          f"bit-equal at each geometry; max abs err {worst}")
     worst["primal_cost"] = check_round_primal("cuda", shapes=shapes, log=print)
     worst["round_phase_update"] = 0.0       # bit-equal, or check_round_primal raised
     print(f"check: the rounding kernels in every mode: state bit-equal, labels equal, cost "

@@ -88,42 +88,84 @@
 // would give.
 //
 // grid_round_kernel: NR full anisotropic rounds (red phase, black phase,
-// repeated) in one launch, so the bytes per iteration fall by 2*NR.  A block
-// writes a T_r x T_c tile of cells and loads it with a halo of P = 2*NR
-// cells on every side (S_r x S_c = (T_r + 2P) x (T_c + 2P)) into shared
-// memory, every edge slot at the cell that owns it, with the costs of each
-// cell's right and lower edge.  It runs the P phases in place there with one
-// __syncthreads() after each (in one phase only cells of one colour update,
-// and no two of them share an edge, so in-place is race-free), then writes
-// the T_r x T_c cells.  A cell's phase-k update reads its neighbours' slots
-// from phase k-1, so phase k only updates the cells within P - k of the
-// written tile: the ones the written tile still depends on; cells on the
-// true grid edge lose nothing (missing edges do not exist).  In a shard,
-// rows beyond the slabs load as absent: they lie more than P <= kSlab rows
-// from the window, so nothing read from them reaches it.
+// repeated) in one launch, so the bytes per iteration fall by 2*NR.  Every
+// written cell needs the cells within P = 2*NR of it; each phase updates one
+// colour in place (no two cells of a colour share an edge), and phase k only
+// updates the cells within P - k of the written ones (cells on the true grid
+// edge lose nothing: missing edges do not exist).  In a shard, rows beyond
+// the slabs load as absent: they lie more than P <= kSlab rows from the
+// window, so nothing read from them reaches it.
 // What bounds it: the 167.86 MB a launch must move at 1000x1000, L=4 (50.1
-// us at 3.35 TB/s).  It does not reach that bound.  Against what held the
-// first version (16 x 16 tiles) to 21 % of it:
-//  - Tiles sized by the arithmetic: a cell costs (5L + 2) * 4 bytes (88 at
-//    L=4) and two blocks share an SM's 228 KB.  Default at L=4, NR=2: T =
-//    12 x 56, S = 20 x 64, 113 KB: 1.90x the written cells loaded and 1.32x
-//    updated (the phases shrink), against 2.25x for both before.  The tile
-//    narrows to 24 or 8 columns as L grows and takes one block per SM where
-//    two do not fit (L = 32: T = 14 x 8); L above kMaxRoundLabels is
-//    refused.  Tile origins sit on multiples of 4 columns.
-//  - Copies by cp.async (cp_async.cuh) straight into shared memory, all in
-//    flight together, with zero fill for absent cells and edges, and the
-//    row bookkeeping done once per row for all labels; costs staged once.
-//  - Colour-split planes: the cells of one colour in a tile row are
-//    consecutive floats, and their neighbours sit at the same offsets in
-//    the other colour's half, 16 banks away: no bank conflicts in the phases
-//    or the write-out.  One thread per cell of a colour in a tile row (640
-//    threads at L=4), streaming stores.
-// On the H100 (round_tile_sweep.py) the copies are bound by requests in
-// flight (4-byte copies: hm1, hm2 and hc rows have W - 1 floats, so their
-// rows are not 16-byte aligned) and the phases by latency; the two blocks of
-// an SM run in step, so neither hides the other.  Tried and slower: a
-// persistent block per SM with two tile buffers; bulk copies (TMA) into
+// us at 3.35 TB/s).  What held its earlier tile design (a block loads a T_r
+// x T_c tile with a halo of P on all four sides into shared memory, waits,
+// runs the P phases, then stores) to 158 us, 32 % of the bound:
+//  - The halo on four sides: at L=4 a cell costs (5L + 2) * 4 = 88 bytes of
+//    shared memory, so two blocks per SM held 20 x 64 loaded cells for 12 x
+//    56 written, 1.90x the written cells.
+//  - The blocks ran in step: each block loaded everything, waited, computed,
+//    stored, so for most of a launch an SM waited on memory or computed,
+//    never both; the copies were bound by the requests in flight and the
+//    phases by latency.
+// This design streams instead.  A block owns one segment of one
+// column strip: it writes T_r rows x T_c columns and loads the strip's S_c =
+// T_c + 2P columns of the segment's T_r + 2P rows, top to bottom, kRoundBand
+// rows (a band) a step, into a ring of rows in shared memory.  Inside a
+// segment there is no vertical halo.  At step s band s has landed; phase k
+// (1..P) updates band s - 2k + 1 and band s - 2P, final since step s - 1,
+// is stored.  The phases run at once on bands two apart, so phase k writes
+// a band whose neighbours no other phase writes in that step, and reads
+// them as phase k - 1 left them the step before; one barrier a step keeps
+// the in-place updates race-free.  Bands s - 2P .. s are live; the copies of
+// the next `ahead` bands (cp.async groups, one a step) stay in flight into
+// the rest of the ring while the phases run.  Each written cell gets the
+// arithmetic the tile gave it, in the same order of adds: the result is
+// bit-equal to the plain version at every geometry.
+//  - Warps by role: the first P * S_c / 2 threads run the phases (one cell
+//    of a colour a band row each, one warp per phase at S_c = 64) and store
+//    hm1 and hm2; as many more issue the copies and store u, vm1 and vm2, so
+//    the memory instructions and the phase arithmetic run side by side on
+//    the SM.  On the H100 (1000x1000, L=4, graph replay) the same kernel with
+//    every thread doing everything took 157 us; with the producers doing
+//    every copy and store, 123-130; with the split above, 108.
+//  - 16-byte copies (kWide): rows of u, vm1, vm2 and vc are W floats, 16-byte
+//    aligned when W is a multiple of 4, so those arrays move as 16-byte
+//    cp.async chunks into planes in natural column order and leave as
+//    16-byte streaming stores; the phases read those planes at a stride of
+//    two floats (a two-way bank conflict).  Rows of hm1, hm2 and hc are W - 1
+//    floats (a stride of 3996 bytes at W = 1000), not a multiple of 16, so no
+//    TMA tensor map can describe them and 16-byte copies would straddle
+//    rows: they keep one float a copy, into colour-split planes (the cells
+//    of one colour in a row consecutive, the other colour 16 banks away, so
+//    neither the phases nor the copies nor the stores conflict on banks).
+//    Other widths, and one round a launch (the strips' loaded columns then
+//    start on odd multiples of 2), take the colour-split planes and one
+//    float a copy for every array.  A store's value comes from shared memory
+//    before any store is issued: the store's asm would keep a later shared
+//    load from moving ahead of it.
+// Geometry (pick_round_tile), from L, the window's rows and columns and
+// the card's shared memory: S_c the widest of 64, 32, 16 whose ring of 2P +
+// 1 + 1 bands fits two blocks per SM (else one), then as many bands in
+// flight as fit, up to kRoundMaxAhead; T_r splits the rows so that strips x
+// segments fill one wave, at least kRoundMinRows.  At 1000x1000, L=4, NR=2:
+// T_c = 56 (64 loaded), 18 strips; a ring of 17 rows of 64 cells (9 live, 8
+// in flight), 98,560 B, two blocks per SM; T_r = 72, 14 segments, 252
+// blocks in one wave of 264; 256 threads a block.  Loaded cells fall from
+// 1.90x to 64/56 x 80/72 = 1.27x the written cells; neighbouring strips
+// share their halo columns through L2.  For L <= kPhaseRegLabels a cell's
+// update loads every value of its labels into registers first (K2's
+// arithmetic); other L take one label at a time.
+// Tried and slower (H100, 1000x1000, L=4, graph replay, against 108 us in
+// the same calls): bands of two rows a step 111 us; three blocks per SM 114
+// (K3 3 us faster); the consumers issuing the copies of hm1, hm2 and hc
+// too 126; four bands in flight in place of eight, the same.  Against the
+// kernel before the stores were split (115-117 us): strips of 120 or 88
+// columns 139-165; plain loads through registers in place of cp.async 257;
+// no division for omega, no gain.  There, without the phases the copies and
+// stores alone took 94 us, without the copies 84, without the stores 82;
+// the copies alone 54 (the 16-byte ones 47), the stores alone 57 (u, vm1,
+// vm2 37), the phases alone 60.
+// Tried with the tile design, and slower, all keeping the whole-tile shape:
+// a persistent block per SM with two tile buffers; bulk copies (TMA) into
 // padded rows plus an in-place rearrangement into colour order; two warp
 // groups with their own buffers, one tile apart.
 // grid_round_primal_kernel: one colour phase of the primal rounding
@@ -161,6 +203,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 
@@ -171,13 +214,14 @@ namespace {
 constexpr int kMaxRoundLabels = 32;
 constexpr int kSlab = 4;  // slab rows per side; covers the round kernel's halo P <= 4
 constexpr float kBig = 3e38f;
-// Round kernel tiles.  An SM has 228 KB of shared memory and keeps 1 KB per
-// block; a block may take 227 KB.
-constexpr size_t kRoundSmemTwoBlocks = (228 * 1024 - 2 * 1024) / 2;
-constexpr size_t kRoundSmemOneBlock = 227 * 1024;
-constexpr int kRoundMaxThreads = 640;  // one thread per cell of a colour in a tile row
-constexpr int kRoundWidths[3] = {56, 24, 8};  // columns written, multiples of 4 (16 bytes)
-constexpr int kRoundMinRows = 4;
+// Round kernel geometry.  kRoundBand rows are a band, the rows a phase
+// takes a step; a strip loads one of kRoundLoadedWidths columns (the widest
+// that fits, T_c + 2P); at most kRoundMaxAhead bands are in flight.
+constexpr int kRoundMaxThreads = 512;  // 2 P * S_c / 2
+constexpr int kRoundLoadedWidths[3] = {64, 32, 16};
+constexpr int kRoundBand = 1;
+constexpr int kRoundMaxAhead = 8;  // cp_async_wait_pending takes up to 7 pending
+constexpr int kRoundMinRows = 8;   // rows a segment writes, at least (the default)
 
 // One input array's rows, addressed by window row r.
 struct Rows {
@@ -543,18 +587,23 @@ __global__ void __launch_bounds__(kCostThreads)
 // ---------------------------------------------------------------------------
 __host__ __device__ constexpr int round_halo(int nr) { return 2 * nr; }
 
-// A round launch's tile: T_r x T_c cells written, S_r x S_c cells loaded (a
-// halo of P = 2 * NR on every side), blocks of (S_c / 2) x rb threads.
+// A round launch's geometry.  Each block owns one segment of one column strip:
+// it writes T_r x T_c cells and streams the T_r + 2P rows of its S_c = T_c +
+// 2P loaded columns (a halo of P = 2 * NR on every side) from top to bottom,
+// kRoundBand rows a step, through a ring of rows in shared memory.
 struct RoundTile {
-  int tr, tc;   // rows and columns written
-  int sr, sc;   // rows and columns loaded
-  int hw;       // cells of one colour in a tile row: S_c / 2, the block's x extent
-  int rb;       // thread rows, the block's y extent
-  int hp;       // floats of one colour half-plane: S_r * hw, padded to 16 mod 32
+  int tr, tc;   // rows of a segment and columns of a strip written (R, T_c)
+  int sr, sc;   // rows streamed and columns loaded: R + 2P, T_c + 2P
+  int hw;       // cells of one colour in a loaded row: S_c / 2
+  int ahead;    // bands in flight while the phases run
+  int ring;     // rows of the ring: (2P + 1 + ahead) bands
+  int threads;  // 2 P * hw: a column of a phase each (kRoundBand cells), as many producers
+  int hp;       // floats of one colour half-plane: ring * hw, padded to 16 mod 32
+  int per_sm;   // blocks per SM the ring was sized for
   size_t smem;  // dynamic shared memory: (5 L + 2) planes of 2 * hp floats
 };
 
-RoundTile make_round_tile(int L, int nr, int tr, int tc) {
+RoundTile make_round_tile(int L, int nr, int tr, int tc, int ahead, int per_sm) {
   const int p = round_halo(nr);
   RoundTile t;
   t.tr = tr;
@@ -562,81 +611,217 @@ RoundTile make_round_tile(int L, int nr, int tr, int tc) {
   t.sr = tr + 2 * p;
   t.sc = tc + 2 * p;
   t.hw = t.sc / 2;
-  const int max_rb = t.hw < kRoundMaxThreads ? kRoundMaxThreads / t.hw : 1;
-  const int passes = (t.sr + max_rb - 1) / max_rb;
-  t.rb = (t.sr + passes - 1) / passes;
-  const int base = t.sr * t.hw;
+  t.ahead = ahead;
+  t.ring = (2 * p + 1 + ahead) * kRoundBand;
+  t.threads = 2 * p * t.hw;
+  const int base = t.ring * t.hw;
   t.hp = base + ((16 - base % 32) + 32) % 32;  // the two halves 16 banks apart
+  t.per_sm = per_sm;
   t.smem = (5 * (size_t)L + 2) * 2 * t.hp * sizeof(float);
   return t;
 }
 
-bool round_tile_ok(const RoundTile& t) {
-  return t.tr >= 1 && t.tc >= 2 && t.tc % 2 == 0 && t.hw * t.rb <= kRoundMaxThreads &&
-         t.smem <= kRoundSmemOneBlock;
-}
+// What the card offers a round launch (queried once per device).
+struct Card {
+  int sms;         // streaming multiprocessors
+  int smem_sm;     // shared memory of an SM
+  int smem_block;  // the most a block may take
+  int reserved;    // what the runtime keeps of an SM's shared memory per block
+};
 
-// The default tile: the widest column count of kRoundWidths whose tile, with
-// as many rows as fit, writes at least kRoundMinRows rows in the shared
-// memory of two blocks per SM, else of one.
-RoundTile round_tile(int L, int nr) {
-  const size_t budgets[2] = {kRoundSmemTwoBlocks, kRoundSmemOneBlock};
-  for (const size_t budget : budgets) {
-    for (const int tc : kRoundWidths) {
-      int tr = 0;
-      while (make_round_tile(L, nr, tr + 1, tc).smem <= budget) ++tr;
-      if (tr >= kRoundMinRows) return make_round_tile(L, nr, tr, tc);
+constexpr int kMaxDevices = 64;
+
+cudaError_t card_of(int dev, Card* c) {
+  static std::atomic<int> known[kMaxDevices][4];  // 0 before the first query
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  const cudaDeviceAttr attr[4] = {cudaDevAttrMultiProcessorCount,
+                                  cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                  cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                  cudaDevAttrReservedSharedMemoryPerBlock};
+  int v[4];
+  for (int k = 0; k < 4; ++k) {
+    v[k] = cached ? known[dev][k].load() : 0;
+    if (v[k] == 0) {
+      const cudaError_t err = cudaDeviceGetAttribute(&v[k], attr[k], dev);
+      if (err != cudaSuccess) return err;
+      if (cached) known[dev][k].store(v[k]);
     }
   }
-  return make_round_tile(L, nr, 1, kRoundWidths[2]);  // not reached for L <= kMaxRoundLabels
+  *c = {v[0], v[1], v[2], v[3]};
+  return cudaSuccess;
 }
 
-// Asynchronous copies of one array's tile rows into its colour-split planes:
-// tile cell (i, j) at plane + ((i + j) & 1) * hp + i * hw + j / 2.  Column c
-// of a tile row reads source column c + c_off where c_lo <= c < c_hi; `edge`
-// keeps only the rows with an edge below (1) or above (2).  Everything else,
-// and every row that does not exist or cannot be read, is 0.  A thread copies
-// the columns tx and tx + hw of its rows, every label of a row in turn.
-template <bool kSharded>
-__device__ __forceinline__ void load_array(float* dst, const Rows& a, int labels, const Grid& g,
-                                           const RoundTile& t, int R0, int C0, int c_lo,
-                                           int c_hi, int c_off, int edge) {
-  const int plane = 2 * t.hp;
-  const int j0 = threadIdx.x, j1 = threadIdx.x + t.hw;
-  const int c0 = C0 + j0, c1 = C0 + j1;
-  const bool col0 = c0 >= c_lo && c0 < c_hi, col1 = c1 >= c_lo && c1 < c_hi;
-  for (int i = threadIdx.y; i < t.sr; i += blockDim.y) {
-    const int r = R0 + i, gr = g.row0 + r;
-    const bool row_ok = gr >= 0 && gr < g.H && readable<kSharded>(g, r) &&
-                        (edge != 1 || gr < g.H - 1) && (edge != 2 || gr > 0);
-    const bool ok0 = row_ok && col0, ok1 = row_ok && col1;
-    const float* s0 = g.u.win;  // any valid address: nothing is read where !ok
-    const float* s1 = g.u.win;
-    long ls = 0;
-    if (row_ok) {
-      const RowPtr rp = row<kSharded>(a, g.n, r);
-      if (ok0) s0 = rp.p + c_off + c0;
-      if (ok1) s1 = rp.p + c_off + c1;
-      ls = rp.ls;
+bool round_tile_ok(const RoundTile& t, const Card& card) {
+  return t.tr >= 1 && t.tc >= 2 && t.tc % 2 == 0 && t.threads <= kRoundMaxThreads &&
+         t.ahead >= 1 && t.ahead <= kRoundMaxAhead && t.smem <= (size_t)card.smem_block;
+}
+
+// The geometry of a launch over n window rows of W columns: T_r = tile_rows
+// and T_c = tile_cols where positive (for a sweep), else the kernel's own.
+// Its own T_c is the widest of kRoundLoadedWidths less the halo whose ring,
+// with at least one band in flight, fits the shared memory of two blocks per
+// SM (else of one); the ring then takes as many bands in flight as fit, up
+// to kRoundMaxAhead.  Its own T_r splits the rows so that the strips times
+// the segments fill one wave of blocks, with at least kRoundMinRows rows.
+bool pick_round_tile(int L, int n_rounds, int n, int W, int tile_rows, int tile_cols,
+                     const Card& card, RoundTile* t) {
+  if (n_rounds != 1 && n_rounds != 2) return false;
+  const int p = round_halo(n_rounds);
+  for (int per_sm = 2; per_sm >= 1; --per_sm) {
+    const long budget = std::min((long)card.smem_sm / per_sm - card.reserved,
+                                 (long)card.smem_block);
+    for (const int sc : kRoundLoadedWidths) {
+      const int tc = tile_cols > 0 ? tile_cols : sc - 2 * p;
+      if (tc < 2) continue;
+      int ahead = kRoundMaxAhead;
+      while (ahead >= 1 && (long)make_round_tile(L, n_rounds, 1, tc, ahead, per_sm).smem > budget) {
+        --ahead;
+      }
+      if (ahead < 1) {
+        if (tile_cols > 0) break;  // a forced width: try one block per SM
+        continue;
+      }
+      int tr = tile_rows;
+      if (tr <= 0) {
+        const int strips = (W + tc - 1) / tc;
+        const int segments = std::max(1, per_sm * card.sms / strips);
+        tr = std::max(kRoundMinRows, (n + segments - 1) / segments);
+      }
+      *t = make_round_tile(L, n_rounds, tr, tc, ahead, per_sm);
+      return round_tile_ok(*t, card);
     }
-    const long ls0 = ok0 ? ls : 0, ls1 = ok1 ? ls : 0;
-    float* d0 = dst + ((i + j0) & 1) * t.hp + i * t.hw + (j0 >> 1);
-    float* d1 = dst + ((i + j1) & 1) * t.hp + i * t.hw + (j1 >> 1);
-    for (int l = 0; l < labels; ++l) {
-      cp_async_f32(d0 + l * plane, s0 + l * ls0, ok0);
-      cp_async_f32(d1 + l * plane, s1 + l * ls1, ok1);
+  }
+  return false;
+}
+
+// Where one cell's values lie in their planes: its own (u and the slots of
+// its right, left, lower and upper edges: hm1, hm2, vm1, vm2), the other
+// slot of each edge (hm2 of the right neighbour, hm1 of the left, vm2 of the
+// lower, vm1 of the upper) and the edges' costs.
+struct CellAt {
+  int u, a, b, d, t;
+  int qr, ql, qd, qu;
+  int cr, cl, cd, cu;
+};
+
+// One cell's phase update in shared memory, its values at `at` in label
+// plane 0 (PL floats a plane).  With kL > 0 labels (exactly L) every value
+// is loaded into registers before the first use; kL == 0 takes any L, the
+// neighbours' min statistics in a pass of their own, then one label at a
+// time.  Same arithmetic and order of adds either way.
+template <int kL>
+__device__ __forceinline__ void round_cell(float* s_u, float* s_a, float* s_b, float* s_d,
+                                           float* s_t, const float* s_hc, const float* s_vc,
+                                           int PL, int L, const CellAt& at, bool right, bool left,
+                                           bool down, bool up, float omega, float keep) {
+  const float cr = right ? s_hc[at.cr] : 0.0f, cl = left ? s_hc[at.cl] : 0.0f;
+  const float cd = down ? s_vc[at.cd] : 0.0f, cu = up ? s_vc[at.cu] : 0.0f;
+  if constexpr (kL > 0) {
+    // every load lies in the ring (the phase's rows and columns shrink), so
+    // the slots of absent edges are read too, and not used
+    float uu[kL], ow[kL][4], ot[kL][4];
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      const int o = l * PL;
+      uu[l] = s_u[at.u + o];
+      ow[l][0] = s_a[at.a + o];
+      ow[l][1] = s_b[at.b + o];
+      ow[l][2] = s_d[at.d + o];
+      ow[l][3] = s_t[at.t + o];
+      ot[l][0] = s_b[at.qr + o];
+      ot[l][1] = s_a[at.ql + o];
+      ot[l][2] = s_t[at.qd + o];
+      ot[l][3] = s_d[at.qu + o];
+    }
+    const bool ex[4] = {right, left, down, up};
+    const float cost[4] = {cr, cl, cd, cu};
+    MinExcept st[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // min_except_stats, in label order
+      st[e] = {ot[0][e], kBig};
+#pragma unroll
+      for (int l = 1; l < kL; ++l) {
+        st[e].s = fminf(st[e].s, fmaxf(st[e].m, ot[l][e]));
+        st[e].m = fminf(st[e].m, ot[l][e]);
+      }
+    }
+    float* const slot[4] = {s_a + at.a, s_b + at.b, s_d + at.d, s_t + at.t};
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      const int o = l * PL;
+      float v = uu[l];
+      float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // same order of adds as the plain version
+        if (ex[e]) {
+          m[e] = potts_marg(ow[l][e], ot[l][e], st[e], cost[e], kL);
+          v += m[e];
+        }
+      }
+      const float d = __fmul_rn(v, omega);
+      s_u[at.u + o] = v * keep;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (ex[e]) slot[e][o] = (ow[l][e] - m[e]) + d;
+      }
+    }
+  } else {
+    MinExcept st_r{0.0f, 0.0f}, st_l{0.0f, 0.0f}, st_d{0.0f, 0.0f}, st_u{0.0f, 0.0f};
+    if (right) st_r = min_except_stats(s_b + at.qr, PL, L);
+    if (left) st_l = min_except_stats(s_a + at.ql, PL, L);
+    if (down) st_d = min_except_stats(s_t + at.qd, PL, L);
+    if (up) st_u = min_except_stats(s_d + at.qu, PL, L);
+    float *pu = s_u + at.u, *pa = s_a + at.a, *pb = s_b + at.b, *pd = s_d + at.d, *pt = s_t + at.t;
+    const float *qr = s_b + at.qr, *ql = s_a + at.ql, *qd = s_t + at.qd, *qu = s_d + at.qu;
+#pragma unroll 4
+    for (int l = 0; l < L; ++l) {
+      const int o = l * PL;
+      const float own_r = pa[o], own_l = pb[o], own_d = pd[o], own_u = pt[o];
+      float uu = pu[o];
+      float mr = 0.0f, ml = 0.0f, md = 0.0f, mu = 0.0f;
+      // same order of adds as the plain version
+      if (right) { mr = potts_marg(own_r, qr[o], st_r, cr, L); uu += mr; }
+      if (left) { ml = potts_marg(own_l, ql[o], st_l, cl, L); uu += ml; }
+      if (down) { md = potts_marg(own_d, qd[o], st_d, cd, L); uu += md; }
+      if (up) { mu = potts_marg(own_u, qu[o], st_u, cu, L); uu += mu; }
+      const float d = __fmul_rn(uu, omega);
+      pu[o] = uu * keep;
+      if (right) pa[o] = (own_r - mr) + d;
+      if (left) pb[o] = (own_l - ml) + d;
+      if (down) pd[o] = (own_d - md) + d;
+      if (up) pt[o] = (own_u - mu) + d;
     }
   }
 }
 
-template <int NR, bool kSharded>
-__global__ void __launch_bounds__(kRoundMaxThreads, 2) grid_round_kernel(const Grid g,
-                                                                         const RoundTile t) {
+__device__ __forceinline__ int ring_next(int slot, int ring) {
+  slot += kRoundBand;
+  return slot >= ring ? slot - ring : slot;
+}
+
+// The ring row of streamed row i (any sign).
+__device__ __forceinline__ int ring_row(int i, int ring) { return ((i % ring) + ring) % ring; }
+
+// kWide (NR = 2, L <= kPhaseRegLabels, W a multiple of 4, the W-wide
+// arrays and their label strides 16-byte aligned): u, vm1, vm2 and vc (rows
+// of W floats) move as 16-byte copies into planes in natural column order
+// and leave as 16-byte stores; hm1, hm2 and hc (rows of W - 1 floats, not
+// 16-byte aligned) keep one float a copy into colour-split planes.  Else
+// every array takes the colour-split planes and one float a copy.
+template <int NR, bool kSharded, int kL, bool kWide>
+__global__ void __launch_bounds__(kRoundMaxThreads) grid_round_kernel(const Grid g,
+                                                                      const RoundTile t) {
   constexpr int P = round_halo(NR);
+  constexpr int B = kRoundBand;
+  constexpr int kGroups = P / 2;  // producer groups of S_c threads
   static_assert(P <= kSlab, "the slabs cover the round kernel's halo");
-  const int L = g.L, H = g.H, W = g.W, n = g.n;
-  const int HW = t.hw, PL = 2 * t.hp;  // PL: floats per label plane
-  const int tx = threadIdx.x, ty = threadIdx.y, RB = blockDim.y;
+  static_assert(P % 2 == 0, "a whole number of S_c-thread groups");
+  static_assert(!kWide || (kL > 0 && P % 4 == 0), "16-byte columns need P a multiple of 4");
+  // 16-byte items a producer takes a band row: copies of the 3L + 1 W-wide
+  // planes' S_c / 4 chunks, stores of the 3L state planes' T_c / 4 chunks
+  constexpr int kWideItems = kWide ? (3 * kL + 1 + 2 * P - 1) / (2 * P) : 0;
+  const int L = kL > 0 ? kL : g.L, H = g.H, W = g.W, n = g.n;
+  const int HW = t.hw, SC = t.sc, PL = 2 * t.hp, NB = t.ring;
   extern __shared__ float smem[];
   // every slot at its owner cell
   float* s_u = smem;
@@ -647,99 +832,260 @@ __global__ void __launch_bounds__(kRoundMaxThreads, 2) grid_round_kernel(const G
   float* s_hc = s_t + L * PL;  // cost of the edge to the right
   float* s_vc = s_hc + PL;     // cost of the edge below
 
-  // tile origin in window coordinates (may lie outside: those cells are absent)
+  // segment origin in window coordinates (may lie outside: those cells are
+  // absent); the segment's written rows rw, its streamed rows sr, in bands
   const int R0 = blockIdx.y * t.tr - P, C0 = blockIdx.x * t.tc - P;
-  load_array<kSharded>(s_u, g.u, L, g, t, R0, C0, 0, W, 0, 0);
-  load_array<kSharded>(s_a, g.hm1, L, g, t, R0, C0, 0, W - 1, 0, 0);
-  load_array<kSharded>(s_b, g.hm2, L, g, t, R0, C0, 1, W, -1, 0);
-  load_array<kSharded>(s_d, g.vm1, L, g, t, R0, C0, 0, W, 0, 1);
-  load_array<kSharded>(s_t, g.vm2, L, g, t, R0, C0, 0, W, 0, 2);
-  load_array<kSharded>(s_hc, g.hc, 1, g, t, R0, C0, 0, W - 1, 0, 0);
-  load_array<kSharded>(s_vc, g.vc, 1, g, t, R0, C0, 0, W, 0, 1);
-  cp_async_wait_all();
-  __syncthreads();
+  const int rw = min(t.tr, n - (R0 + P));
+  const int sr = rw + 2 * P, bands = (sr + B - 1) / B;
+  const int shift = (g.row0 + R0 + C0) & 1;  // global parity of streamed cell (0, 0)
+  const int consumers = P * HW;              // the first threads run the phases
+  const bool producer = (int)threadIdx.x >= consumers;
+  const int tid = producer ? threadIdx.x - consumers : threadIdx.x;
 
-  // Phase k (1..P) updates the cells of one colour within P - k of the
-  // written tile: the ones the written tile still depends on.  Those cells
-  // are one colour half-plane, so a thread row reads and writes consecutive
-  // floats, and their neighbours lie in the other half at the same offsets.
-  const int shift = (g.row0 + R0 + C0) & 1;  // global parity of local cell (0, 0)
-#pragma unroll 1
-  for (int k = 1; k <= P; ++k) {
-    const int q = (k & 1) ^ shift;  // half-plane that updates: red (odd r + c) first
-    const int own0 = q * t.hp, oth0 = (q ^ 1) * t.hp;
-    for (int i = k + ty; i < t.sr - k; i += RB) {
-      const int b = (q ^ i) & 1;
-      const int j = 2 * tx + b;
-      const int r = R0 + i, gr = g.row0 + r, c = C0 + j;
-      if (j < k || j >= t.sc - k || gr < 0 || gr >= H || c < 0 || c >= W ||
-          !readable<kSharded>(g, r)) {
-        continue;
-      }
-      const bool right = c < W - 1, left = c > 0, down = gr < H - 1, up = gr > 0;
-      const float deg = (float)right + (float)left + (float)down + (float)up;
-      const float omega = 1.0f / fmaxf(deg, 1.0f);
-      const float keep = 1.0f - __fmul_rn(omega, deg);
-      const int own = own0 + i * HW + tx;
-      const int nr = oth0 + i * HW + tx + b;  // cell (i, j + 1); (i, j - 1) is nr - 1
-      const int nd = oth0 + (i + 1) * HW + tx, nu = oth0 + (i - 1) * HW + tx;
-      MinExcept st_r{0.0f, 0.0f}, st_l{0.0f, 0.0f}, st_d{0.0f, 0.0f}, st_u{0.0f, 0.0f};
-      if (right) st_r = min_except_stats(s_b + nr, PL, L);
-      if (left) st_l = min_except_stats(s_a + nr - 1, PL, L);
-      if (down) st_d = min_except_stats(s_t + nd, PL, L);
-      if (up) st_u = min_except_stats(s_d + nu, PL, L);
-      const float cr = right ? s_hc[own] : 0.0f, cl = left ? s_hc[nr - 1] : 0.0f;
-      const float cd = down ? s_vc[own] : 0.0f, cu = up ? s_vc[nu] : 0.0f;
-      float *pu = s_u + own, *pa = s_a + own, *pb = s_b + own, *pd = s_d + own, *pt = s_t + own;
-      const float *qr = s_b + nr, *ql = s_a + nr - 1, *qd = s_t + nd, *qu = s_d + nu;
-#pragma unroll 4
-      for (int l = 0; l < L; ++l) {
-        const int o = l * PL;
-        const float own_r = pa[o], own_l = pb[o], own_d = pd[o], own_u = pt[o];
-        float uu = pu[o];
-        float mr = 0.0f, ml = 0.0f, md = 0.0f, mu = 0.0f;
-        // same order of adds as the plain version
-        if (right) { mr = potts_marg(own_r, qr[o], st_r, cr, L); uu += mr; }
-        if (left) { ml = potts_marg(own_l, ql[o], st_l, cl, L); uu += ml; }
-        if (down) { md = potts_marg(own_d, qd[o], st_d, cd, L); uu += md; }
-        if (up) { mu = potts_marg(own_u, qu[o], st_u, cu, L); uu += mu; }
-        const float d = __fmul_rn(uu, omega);
-        pu[o] = uu * keep;
-        if (right) pa[o] = (own_r - mr) + d;
-        if (left) pb[o] = (own_l - ml) + d;
-        if (down) pd[o] = (own_d - md) + d;
-        if (up) pt[o] = (own_u - mu) + d;
-      }
+  // Producers: copies and stores, thread column lc of S_c in group lg.
+  const int lc = tid % SC, lg = tid / SC;
+  const int cl = C0 + lc;
+  const bool in_w = cl >= 0 && cl < W, in_w1 = in_w && cl < W - 1, in_w2 = in_w && cl >= 1;
+  // kWide: this producer's 16-byte items, the same every band row.  Copy
+  // item k: array wa (0 u, 3 vm1, 4 vm2, 6 vc), label wl, plane offset wo of
+  // its chunk in ring row 0, first column wc; store item k: array xa, label
+  // xl, plane offset xo in ring row 0, output column xc.
+  int wa[kWideItems > 0 ? kWideItems : 1], wl[kWideItems > 0 ? kWideItems : 1];
+  int wo[kWideItems > 0 ? kWideItems : 1], wc[kWideItems > 0 ? kWideItems : 1];
+  int xa[kWideItems > 0 ? kWideItems : 1], xl[kWideItems > 0 ? kWideItems : 1];
+  int xo[kWideItems > 0 ? kWideItems : 1], xc[kWideItems > 0 ? kWideItems : 1];
+  if constexpr (kWide) {
+    const int nq = SC / 4, nx = t.tc / 4;
+#pragma unroll
+    for (int k = 0; k < kWideItems; ++k) {
+      const int item = tid + k * consumers;
+      const int pw = item / nq, q = item % nq;  // plane of the 3L + 1, chunk
+      wa[k] = pw >= 3 * kL + 1 ? -1 : pw == 3 * kL ? 6 : pw < kL ? 0 : pw < 2 * kL ? 3 : 4;
+      wl[k] = pw == 3 * kL ? 0 : pw % kL;
+      wo[k] = wa[k] < 0 ? 0
+                        : (wa[k] == 6 ? (int)(s_vc - smem) : wa[k] * kL * PL) + wl[k] * PL + 4 * q;
+      wc[k] = C0 + 4 * q;
+      const int px = item / nx, qx = item % nx;  // plane of the 3L, chunk
+      xa[k] = px >= 3 * kL ? -1 : px < kL ? 0 : px < 2 * kL ? 3 : 4;
+      xl[k] = px % kL;
+      xo[k] = xa[k] < 0 ? 0 : xa[k] * kL * PL + xl[k] * PL + P + 4 * qx;
+      xc[k] = C0 + P + 4 * qx;
     }
-    __syncthreads();
   }
-
-  // write the tile: each cell's u and own slots (zeros for an inert row and
-  // for slots of absent edges in a shard)
-  for (int i = P + ty; i < P + t.tr; i += RB) {
-    const int r = R0 + i, gr = g.row0 + r;
-    if (r >= n) break;
-    const bool live = !kSharded || gr < H;
-    const bool down = live && gr < H - 1, up = live && gr > 0;
-    for (int j = P + tx; j < P + t.tc; j += HW) {
-      const int c = C0 + j;
-      if (c >= W) break;
-      const bool right = c < W - 1, left = c > 0;
-      float* ou = out_at(g.u_o, 0, r, c);
-      float* oh1 = right ? out_at(g.hm1_o, 0, r, c) : nullptr;
-      float* oh2 = left ? out_at(g.hm2_o, 0, r, c - 1) : nullptr;
-      float* ov1 = (down || kSharded) ? out_at(g.vm1_o, 0, r, c) : nullptr;
-      float* ov2 = (up || kSharded) ? out_at(g.vm2_o, 0, r, c) : nullptr;
-      const int o0 = ((i + j) & 1) * t.hp + i * HW + (j >> 1);
-      for (int l = 0; l < L; ++l) {
-        const int o = l * PL + o0;
-        __stcs(ou + l * g.u_o.ls, live ? s_u[o] : 0.0f);  // streaming: not read again here
-        if (right) __stcs(oh1 + l * g.hm1_o.ls, live ? s_a[o] : 0.0f);
-        if (left) __stcs(oh2 + l * g.hm2_o.ls, live ? s_b[o] : 0.0f);
-        if (down || kSharded) __stcs(ov1 + l * g.vm1_o.ls, down ? s_d[o] : 0.0f);
-        if (up || kSharded) __stcs(ov2 + l * g.vm2_o.ls, up ? s_t[o] : 0.0f);
+  auto load_band = [&](int band, int slot0) {
+    if (band >= bands) return;
+#pragma unroll
+    for (int rr = 0; rr < B; ++rr) {
+      const int i = band * B + rr;
+      if (i >= sr) continue;
+      const int r = R0 + i, gr = g.row0 + r;
+      const bool row_ok = gr >= 0 && gr < H && readable<kSharded>(g, r);
+      const bool dn_ok = row_ok && gr < H - 1, up_ok = row_ok && gr > 0;
+      // colour-split planes: streamed cell (i, j) at ((i + j) & 1) * hp + ring
+      // row * hw + j / 2; a cell that does not exist, or whose row cannot be
+      // read, is 0
+      const int d = ((i + lc) & 1) * t.hp + (slot0 + rr) * HW + (lc >> 1);
+#pragma unroll
+      for (int a = 0; a < 7; ++a) {
+        // kWide: the W-wide arrays below; the others round robin over the groups
+        const int nth = kWide ? (a == 1 ? 0 : a == 2 ? 1 : 2) : a;
+        if ((kWide && (a == 0 || a == 3 || a == 4 || a == 6)) || (nth * B + rr) % kGroups != lg) {
+          continue;
+        }
+        // (array, its plane, labels, row flag, columns that exist, source column offset)
+        const Rows& src = a == 0 ? g.u : a == 1 ? g.hm1 : a == 2 ? g.hm2 : a == 3 ? g.vm1
+                        : a == 4 ? g.vm2 : a == 5 ? g.hc : g.vc;
+        float* const plane = a < 5 ? s_u + a * L * PL : a == 5 ? s_hc : s_vc;
+        const bool ok = (a == 3 || a == 6 ? dn_ok : a == 4 ? up_ok : row_ok) &&
+                        (a == 1 || a == 5 ? in_w1 : a == 2 ? in_w2 : in_w);
+        const float* p = g.u.win;  // any valid address: nothing is read where !ok
+        long ls = 0;
+        if (ok) {
+          const RowPtr rp = row<kSharded>(src, n, r);
+          p = rp.p + cl - (a == 2);
+          ls = rp.ls;
+        }
+        for (int l = 0; l < (a < 5 ? L : 1); ++l) cp_async_f32(plane + d + l * PL, p + l * ls, ok);
+      }
+      if constexpr (kWide) {
+        const int ro = (slot0 + rr) * SC;
+#pragma unroll
+        for (int k = 0; k < kWideItems; ++k) {
+          if (wa[k] < 0) continue;
+          const Rows& src = wa[k] == 0 ? g.u : wa[k] == 3 ? g.vm1 : wa[k] == 4 ? g.vm2 : g.vc;
+          const bool ok = (wa[k] == 0 ? row_ok : wa[k] == 4 ? up_ok : dn_ok) && wc[k] >= 0 &&
+                          wc[k] < W;  // a chunk lies all inside or all outside
+          const float* p = g.u.win;
+          if (ok) {
+            const RowPtr rp = row<kSharded>(src, n, r);
+            p = rp.p + wl[k] * rp.ls + wc[k];
+          }
+          cp_async_16(smem + wo[k] + ro, p, ok);
+        }
       }
     }
+  };
+  // write a final band: each cell's u and own slots (zeros for an inert row
+  // and for slots of absent edges in a shard); the producers store u, vm1
+  // and vm2 (uvm), the consumers, beside their phase, hm1 and hm2
+  const int js = P + lc, cs = C0 + js;
+  const bool st_col = lc < t.tc && cs < W, right = cs < W - 1, left = cs > 0;
+  auto store_band = [&](int band, int slot0, bool uvm) {
+    if (band < 0) return;
+#pragma unroll
+    for (int rr = 0; rr < B; ++rr) {
+      const int i = band * B + rr;
+      if (i < P || i >= P + rw) continue;
+      const int r = R0 + i, gr = g.row0 + r;
+      const bool live = !kSharded || gr < H;
+      const bool down = live && gr < H - 1, up = live && gr > 0;
+      if constexpr (kWide) {  // u, vm1, vm2 from their natural planes, 4 columns a store
+        const int ro = (slot0 + rr) * SC;
+        float4 v[kWideItems];
+#pragma unroll
+        for (int k = 0; k < kWideItems; ++k) {
+          const bool keep = xa[k] == 3 ? down : xa[k] == 4 ? up : live;  // else the slot gets 0
+          const bool mine = uvm && xa[k] >= 0 && xc[k] < W;
+          v[k] = mine && keep ? *reinterpret_cast<const float4*>(smem + xo[k] + ro)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+#pragma unroll
+        for (int k = 0; k < kWideItems; ++k) {
+          const bool has = xa[k] == 0 || (xa[k] == 3 && (down || kSharded)) ||
+                           (xa[k] == 4 && (up || kSharded));
+          if (!uvm || xa[k] < 0 || xc[k] >= W || !has) continue;
+          const OutRows& o = xa[k] == 0 ? g.u_o : xa[k] == 3 ? g.vm1_o : g.vm2_o;
+          __stcs(reinterpret_cast<float4*>(out_at(o, xl[k], r, xc[k])), v[k]);
+        }
+      }
+      if (!st_col || (kWide && uvm)) continue;
+      const int o0 = ((i + js) & 1) * t.hp + (slot0 + rr) * HW + (js >> 1);
+      // every value first, then the stores: a store's asm keeps every shared
+      // load after it from moving ahead
+      float v[5][kL > 0 ? kL : 1];
+      float* dst[5];
+      bool has[5];
+#pragma unroll
+      for (int a = 0; a < 5; ++a) {
+        const OutRows& o = a == 0 ? g.u_o : a == 1 ? g.hm1_o : a == 2 ? g.hm2_o
+                         : a == 3 ? g.vm1_o : g.vm2_o;
+        has[a] = (a == 1 || a == 2) != uvm &&  // the arrays this role stores
+                 (a == 0 || (a == 1 && right) || (a == 2 && left) ||
+                  (a == 3 && (down || kSharded)) || (a == 4 && (up || kSharded)));
+        dst[a] = has[a] ? out_at(o, 0, r, cs - (a == 2)) : nullptr;
+      }
+      if constexpr (kL > 0) {
+#pragma unroll
+        for (int a = 0; a < 5; ++a) {
+          const bool keep = a == 3 ? down : a == 4 ? up : live;  // else the slot gets 0
+          const float* const sv = s_u + a * L * PL + o0;
+#pragma unroll
+          for (int l = 0; l < kL; ++l) {
+            const bool mine = has[a] && ((a * B + rr) * kL + l) % kGroups == lg;
+            v[a][l] = mine && keep ? sv[l * PL] : 0.0f;
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 5; ++a) {
+        if (!has[a]) continue;
+        const long ls = a == 0 ? g.u_o.ls : a == 1 ? g.hm1_o.ls : a == 2 ? g.hm2_o.ls
+                      : a == 3 ? g.vm1_o.ls : g.vm2_o.ls;
+        const bool keep = a == 3 ? down : a == 4 ? up : live;
+        const float* const sv = s_u + a * L * PL + o0;
+        for (int l = 0; l < L; ++l) {  // streaming stores: not read again here
+          if (((a * B + rr) * L + l) % kGroups != lg) continue;
+          float val;
+          if constexpr (kL > 0) {
+            val = v[a][l];
+          } else {
+            val = keep ? sv[l * PL] : 0.0f;
+          }
+          __stcs(dst[a] + l * ls, val);
+        }
+      }
+    }
+  };
+
+  // Consumers: phase k (1..P), cell x of a colour in each row of a band.
+  // Phase k updates the cells of one colour (a colour half-plane: a
+  // thread row reads and writes consecutive floats, and their neighbours lie
+  // in the other half at the same offsets) within P - k of the written
+  // cells: the ones those cells still depend on.
+  const int k = tid / HW + 1, x = tid % HW;
+  const int q = (k & 1) ^ shift;  // half-plane that updates: red (odd r + c) first
+  const int own0 = q * t.hp, oth0 = (q ^ 1) * t.hp;
+  auto phase_row = [&](int i, int slot) {
+    if (i < k || i >= sr - k) return;
+    const int b = (q ^ i) & 1;
+    const int j = 2 * x + b;
+    const int r = R0 + i, gr = g.row0 + r, c = C0 + j;
+    if (j < k || j >= SC - k || gr < 0 || gr >= H || c < 0 || c >= W ||
+        !readable<kSharded>(g, r)) {
+      return;
+    }
+    const bool right = c < W - 1, left = c > 0, down = gr < H - 1, up = gr > 0;
+    const float deg = (float)right + (float)left + (float)down + (float)up;
+    const float omega = 1.0f / fmaxf(deg, 1.0f);
+    const float keep = 1.0f - __fmul_rn(omega, deg);
+    const int su = slot == 0 ? NB - 1 : slot - 1, sd = slot == NB - 1 ? 0 : slot + 1;
+    const int own = own0 + slot * HW + x;
+    const int nr = oth0 + slot * HW + x + b;  // cell (i, j + 1); (i, j - 1) is nr - 1
+    CellAt at;
+    at.a = at.b = at.cr = own;
+    at.qr = nr;
+    at.ql = at.cl = nr - 1;
+    if constexpr (kWide) {  // u, vm1, vm2, vc in natural column order
+      at.u = at.d = at.t = at.cd = slot * SC + j;
+      at.qd = sd * SC + j;
+      at.qu = at.cu = su * SC + j;
+    } else {
+      at.u = at.d = at.t = at.cd = own;
+      at.qd = oth0 + sd * HW + x;
+      at.qu = at.cu = oth0 + su * HW + x;
+    }
+    round_cell<kL>(s_u, s_a, s_b, s_d, s_t, s_hc, s_vc, PL, L, at, right, left, down, up, omega,
+                   keep);
+  };
+  auto phase = [&](int band, int slot0) {
+    if (band < 0 || band >= bands) return;
+#pragma unroll
+    for (int rb = 0; rb < B; ++rb) phase_row(band * B + rb, slot0 + rb);
+  };
+
+  // The pipeline.  At step s band s has landed; phase k updates band s - 2k +
+  // 1, all phases at once: phase k writes one band and reads that band's
+  // neighbours, which no other phase writes in the step (the bands two
+  // apart), and reads them at the phase k - 1 the step before left them in;
+  // band s - 2P, final since the step before, is stored (u, vm1, vm2 by the
+  // producers, hm1, hm2 by the consumers), and the producers issue the copies
+  // of band s + ahead.  Bands s - 2P .. s are live, and the copies of the
+  // next `ahead` bands are in flight into the rest of the ring.  One barrier
+  // a step.
+  if (producer) {
+    for (int band = 0; band < t.ahead; ++band) {
+      load_band(band, band * B);
+      cp_async_commit();
+    }
+  }
+  int ld_slot = ring_row(t.ahead * B, NB), st_slot = ring_row(-2 * P * B, NB);
+  int ph_slot = ring_row((1 - 2 * k) * B, NB);
+  const int steps = bands + 2 * P;
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    if (producer) cp_async_wait_pending(t.ahead - 1);  // band s has landed (this thread's copies)
+    __syncthreads();  // ... every producer's, and step s - 1 is over
+    if (producer) {
+      load_band(s + t.ahead, ld_slot);
+      cp_async_commit();
+      store_band(s - 2 * P, st_slot, true);
+      ld_slot = ring_next(ld_slot, NB);
+    } else {
+      phase(s - 2 * k + 1, ph_slot);
+      store_band(s - 2 * P, st_slot, false);
+      ph_slot = ring_next(ph_slot, NB);
+    }
+    st_slot = ring_next(st_slot, NB);
   }
 }
 
@@ -810,16 +1156,13 @@ cudaError_t launch_phase(const Grid& g, int recv_color, int send_color, float le
   }
 }
 
-// Devices whose round-kernel attributes are remembered below; a device of a
-// higher ordinal sets them at every launch.
-constexpr int kMaxDevices = 64;
-
 // The kernel's attributes are set per device at the first launch that needs
 // more dynamic shared memory than any before, and remembered: a launch under
 // CUDA stream capture (a graph of the port's capture.py, set up by an eager
-// warm-up launch) then makes no runtime call but the launch itself.
-template <int NR, bool kSharded>
-cudaError_t launch_round(const Grid& g, const RoundTile& t, cudaStream_t stream) {
+// warm-up launch) then makes no runtime call but the launch itself.  With g
+// null, *blocks gets the blocks an SM holds at this geometry instead.
+template <int NR, bool kSharded, int kL, bool kWide>
+cudaError_t round_op(const Grid* g, const RoundTile& t, cudaStream_t stream, int* blocks) {
   static std::atomic<long long> smem_set[kMaxDevices];   // zero before the first launch
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -827,10 +1170,10 @@ cudaError_t launch_round(const Grid& g, const RoundTile& t, cudaStream_t stream)
   const bool known = dev >= 0 && dev < kMaxDevices;
   long long have = known ? smem_set[dev].load() : 0;
   if (have < (long long)t.smem) {
-    err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded>,
+    err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded, kL, kWide>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)t.smem);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded>,
+    err = cudaFuncSetAttribute(grid_round_kernel<NR, kSharded, kL, kWide>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
@@ -838,27 +1181,87 @@ cudaError_t launch_round(const Grid& g, const RoundTile& t, cudaStream_t stream)
            !smem_set[dev].compare_exchange_weak(have, (long long)t.smem)) {
     }
   }
-  const dim3 grid((g.W + t.tc - 1) / t.tc, (g.n + t.tr - 1) / t.tr);
-  grid_round_kernel<NR, kSharded><<<grid, dim3(t.hw, t.rb), t.smem, stream>>>(g, t);
+  if (g == nullptr) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, grid_round_kernel<NR, kSharded, kL, kWide>, t.threads, t.smem);
+  }
+  const dim3 grid((g->W + t.tc - 1) / t.tc, (g->n + t.tr - 1) / t.tr);
+  grid_round_kernel<NR, kSharded, kL, kWide><<<grid, t.threads, t.smem, stream>>>(*g, t);
   return cudaGetLastError();
 }
 
-// The tile of a launch: tile_rows x tile_cols when both are positive (for a
-// tile sweep), else the default of round_tile.
-bool pick_round_tile(int L, int n_rounds, int tile_rows, int tile_cols, RoundTile* t) {
-  if (n_rounds != 1 && n_rounds != 2) return false;
-  *t = (tile_rows > 0 && tile_cols > 0) ? make_round_tile(L, n_rounds, tile_rows, tile_cols)
-                                         : round_tile(L, n_rounds);
-  return round_tile_ok(*t);
+bool aligned16(const void* p, long ls) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && ls % 4 == 0;
 }
 
+// Whether the W-wide arrays move 16 bytes at a time (kWide): two rounds
+// (the strips' loaded columns start on multiples of 4), T_c and W multiples
+// of 4, and u, vm1, vm2, vc (windows, and in a shard their slabs) and the
+// outputs of the first three 16-byte aligned, with label strides of whole
+// 16-byte units.
+template <bool kSharded>
+bool round_wide(const Grid& g, const RoundTile& t, int n_rounds) {
+  if (n_rounds != 2 || g.L > kPhaseRegLabels || t.tc % 4 || g.W % 4) return false;
+  const Rows* in[4] = {&g.u, &g.vm1, &g.vm2, &g.vc};
+  for (const Rows* a : in) {
+    if (!aligned16(a->win, a->ls)) return false;
+    if (kSharded && !(aligned16(a->top, a->tls) && aligned16(a->bot, a->bls))) return false;
+  }
+  const OutRows* out[3] = {&g.u_o, &g.vm1_o, &g.vm2_o};
+  for (const OutRows* o : out) {
+    if (!aligned16(o->p, o->ls)) return false;
+  }
+  return true;
+}
+
+// round_op with the label count L as a template argument where L <=
+// kPhaseRegLabels (the all-in-registers cell update), else 0; kWide where
+// round_wide allows it.
+template <int NR, bool kSharded>
+cudaError_t round_op_labels(const Grid& g, const RoundTile& t, cudaStream_t stream, int* blocks,
+                            bool launch) {
+  static_assert(kPhaseRegLabels == 4, "one instantiation per label count in registers");
+  const Grid* gp = launch ? &g : nullptr;
+  if constexpr (NR == 2) {
+    if (round_wide<kSharded>(g, t, NR)) {
+      switch (g.L) {
+        case 1: return round_op<NR, kSharded, 1, true>(gp, t, stream, blocks);
+        case 2: return round_op<NR, kSharded, 2, true>(gp, t, stream, blocks);
+        case 3: return round_op<NR, kSharded, 3, true>(gp, t, stream, blocks);
+        default: return round_op<NR, kSharded, 4, true>(gp, t, stream, blocks);
+      }
+    }
+  }
+  switch (g.L) {
+    case 1: return round_op<NR, kSharded, 1, false>(gp, t, stream, blocks);
+    case 2: return round_op<NR, kSharded, 2, false>(gp, t, stream, blocks);
+    case 3: return round_op<NR, kSharded, 3, false>(gp, t, stream, blocks);
+    case 4: return round_op<NR, kSharded, 4, false>(gp, t, stream, blocks);
+    default: return round_op<NR, kSharded, 0, false>(gp, t, stream, blocks);
+  }
+}
+
+// A launch (launch true) or the occupancy query (blocks) of the round kernel
+// that takes g's window at geometry t.
+template <bool kSharded>
+cudaError_t round_op_nr(int n_rounds, const Grid& g, const RoundTile& t, cudaStream_t stream,
+                        int* blocks, bool launch) {
+  if (n_rounds == 1) return round_op_labels<1, kSharded>(g, t, stream, blocks, launch);
+  return round_op_labels<2, kSharded>(g, t, stream, blocks, launch);
+}
+
+// A round launch over the window of g, at the geometry of pick_round_tile.
 template <bool kSharded>
 cudaError_t launch_round_nr(const Grid& g, int n_rounds, int tile_rows, int tile_cols,
-                            cudaStream_t stream) {
+                            int device, cudaStream_t stream) {
+  Card card;
+  cudaError_t err = card_of(device, &card);
+  if (err != cudaSuccess) return err;
   RoundTile t;
-  if (!pick_round_tile(g.L, n_rounds, tile_rows, tile_cols, &t)) return cudaErrorInvalidValue;
-  if (n_rounds == 1) return launch_round<1, kSharded>(g, t, stream);
-  return launch_round<2, kSharded>(g, t, stream);
+  if (!pick_round_tile(g.L, n_rounds, g.n, g.W, tile_rows, tile_cols, card, &t)) {
+    return cudaErrorInvalidValue;
+  }
+  return round_op_nr<kSharded>(n_rounds, g, t, stream, nullptr, true);
 }
 
 Rows dense_rows(const float* p, long ls, int width, int shift) {
@@ -1000,19 +1403,43 @@ int lpmp_grid_round_update(const float* u, const float* hm1, const float* hm2, c
   if (err != cudaSuccess) return err;
   const Grid g = dense_grid(u, hm1, hm2, vm1, vm2, hc, vc, u_o, hm1_o, hm2_o, vm1_o, vm2_o, L,
                             H, W);
-  return launch_round_nr<false>(g, n_rounds, tile_rows, tile_cols,
+  return launch_round_nr<false>(g, n_rounds, tile_rows, tile_cols, device,
                                 static_cast<cudaStream_t>(stream));
 }
 
-// The round kernel's tile for L labels and n_rounds (tile_rows, tile_cols as
-// for a launch): out = {T_r, T_c, S_r, S_c, threads, shared bytes}.
-int lpmp_grid_round_tile(int L, int n_rounds, int tile_rows, int tile_cols, long long* out) {
+// The round kernel's geometry on `device` for L labels, n_rounds and a
+// window of n rows of W columns (tile_rows, tile_cols as for a launch;
+// `sharded` picks the kernel of a shard's window): out = {T_r, T_c, S_r,
+// S_c, band rows, bands ahead, ring rows, threads, shared bytes, blocks per
+// SM the ring was sized for, blocks per SM the card holds, strips,
+// segments, waves, whether the W-wide arrays move 16 bytes at a time}.
+int lpmp_grid_round_tile(int L, int n_rounds, int n, int W, int tile_rows, int tile_cols,
+                         int sharded, int device, long long* out) {
+  if (L < 1 || L > kMaxRoundLabels || n < 1 || W < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Card card;
+  err = card_of(device, &card);
+  if (err != cudaSuccess) return err;
   RoundTile t;
-  if (L < 1 || L > kMaxRoundLabels || !pick_round_tile(L, n_rounds, tile_rows, tile_cols, &t)) {
+  if (!pick_round_tile(L, n_rounds, n, W, tile_rows, tile_cols, card, &t)) {
     return cudaErrorInvalidValue;
   }
-  const long long v[6] = {t.tr, t.tc, t.sr, t.sc, (long long)t.hw * t.rb, (long long)t.smem};
-  for (int k = 0; k < 6; ++k) out[k] = v[k];
+  // a dense window of aligned arrays stands for the launch's (a shard's
+  // windows and slabs keep the dense alignment where W is a multiple of 4)
+  float* const any = reinterpret_cast<float*>(256);
+  const Grid g = dense_grid(any, any, any, any, any, any, any, any, any, any, any, any, L, n, W);
+  const bool wide = sharded ? round_wide<true>(g, t, n_rounds) : round_wide<false>(g, t, n_rounds);
+  int blocks = 0;
+  err = sharded ? round_op_nr<true>(n_rounds, g, t, nullptr, &blocks, false)
+                : round_op_nr<false>(n_rounds, g, t, nullptr, &blocks, false);
+  if (err != cudaSuccess) return err;
+  const long long strips = (W + t.tc - 1) / t.tc, segments = (n + t.tr - 1) / t.tr;
+  const long long wave = (long long)std::max(blocks, 1) * card.sms;
+  const long long v[15] = {t.tr, t.tc, t.sr, t.sc, kRoundBand, t.ahead, t.ring, t.threads,
+                           (long long)t.smem, t.per_sm, blocks, strips, segments,
+                           (strips * segments + wave - 1) / wave, wide};
+  for (int k = 0; k < 15; ++k) out[k] = v[k];
   return cudaSuccess;
 }
 
@@ -1036,7 +1463,7 @@ int lpmp_grid_round_update_sharded(void* const* ptrs, const long long* slab_ls, 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   return launch_round_nr<true>(shard_grid(ptrs, slab_ls, L, n, W, row0, H), n_rounds,
-                               tile_rows, tile_cols, static_cast<cudaStream_t>(stream));
+                               tile_rows, tile_cols, device, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -6,8 +6,10 @@ compared array by array with the plain torch version on the same inputs;
 the tolerance is ``1e-5 * (1 + max|x|)`` per array, for float32 (the
 kernels round each operation as the plain ops do, so the error is expected
 to be 0, but the bound leaves room for a compiler that contracts an FMA).
-The rounding kernels are held tighter (``check_round_primal``): state
-bit-equal, labels equal, the cost within ``COST_RTOL``.
+The round kernels (K1, K3) are held bit-equal, at the kernel's own geometry
+and at each forced one of ``ROUND_GEOMETRIES``, and so are the rounding
+kernels (``check_round_primal``): state bit-equal, labels equal, the cost
+within ``COST_RTOL``.
 """
 from __future__ import annotations
 
@@ -16,20 +18,24 @@ import torch
 
 from .config import ReparametrizationMode
 from .models.grid_potts import phase_tuples
-from .ops.grid_kernels import (ROUND_MAX_LABELS, STATE_KEYS, cost_work_size, phase_update,
-                               phase_update_ref, phase_update_sharded, phase_update_sharded_ref,
-                               phase_update_v1, primal_cost, primal_cost_ref, round_phase_ref,
-                               round_phase_update, round_update, round_update_ref,
-                               round_update_sharded, round_update_sharded_ref)
+from .ops.grid_kernels import (ROUND_MAX_LABELS, STATE_KEYS, cost_work_size, launch_round_update,
+                               launch_round_update_sharded, phase_update, phase_update_ref,
+                               phase_update_sharded, phase_update_sharded_ref, phase_update_v1,
+                               primal_cost, primal_cost_ref, round_phase_ref, round_phase_update,
+                               round_update, round_update_ref, round_update_sharded,
+                               round_update_sharded_ref)
 from .parallel.grid import RowShards
 
-# (H, W, L): ragged shapes around the round kernel's tiles (T_r x T_c cells
-# written per block: 12 x 56 at L=4 and n_rounds=2, 17 x 56 at n_rounds=1,
-# 56 x 56 at L=1, 13 x 24 at L=8, 14 x 8 at L=32), among them widths that are
-# no multiple of 4 floats, heights below a tile, W and H of 1 and 2, L = 1
-# and L = 32; then shapes around the phase kernel's blocks (PHASE_BLOCK):
-# widths 1-3 columns either side of 64 and 128, heights that leave a partial
-# block; last the main path's 1000 x 1000 grid with 4 labels
+# (H, W, L): ragged shapes around the round kernel's geometries (each block
+# writes T_r rows of one segment of a T_c-column strip, streaming the rows
+# through a ring in shared memory; ROUND_GEOMETRIES), among them widths that
+# are no multiple of 4 floats and odd widths, heights of at most 2P rows, W
+# and H of 1 and 2, L = 1, 5, 8 and 32, heights above the tall geometry's
+# segments (the ring wraps); then shapes around the phase kernel's blocks
+# (PHASE_BLOCK): widths 1-3 columns either side of 64 and 128, heights that
+# leave a partial block; then widths that are multiples of 4 at the label
+# counts not yet there (the round kernels' 16-byte copies, L <= 4); last the
+# main path's 1000 x 1000 grid with 4 labels
 # (rows, columns) of the phase kernel's block: kPhaseRows rows of
 # kPhasePairs pairs of cells in csrc/grid_potts.cu
 PHASE_BLOCK = (4, 64)
@@ -37,7 +43,14 @@ CHECK_SHAPES = ((8, 8, 4), (33, 47, 3), (64, 40, 2), (9, 11, 1), (17, 130, 5),
                 (13, 57, 4), (5, 117, 4), (41, 113, 4), (9, 1, 3), (7, 2, 4), (1, 60, 4),
                 (2, 61, 2), (57, 59, 1), (23, 26, 8), (30, 21, 32),
                 (10, 63, 4), (9, 65, 3), (23, 66, 4), (17, 62, 2), (6, 67, 5), (19, 129, 4),
-                (1000, 1000, 4))
+                (45, 36, 1), (21, 44, 3), (1000, 1000, 4))
+# (T_r, T_c) of the round kernels' launches in the checks: the kernel's own
+# choice (0, 0); segments of 3 rows (shorter than 2P at either n_rounds) in
+# strips of 4 columns, so that every small shape wider than 4 columns and
+# taller than 3 rows crosses two strips and two segments, most of them with a
+# last partial strip and segment; segments of 40 rows, longer than the ring
+# at every L, so that the ring wraps in every shape taller than 40 rows
+ROUND_GEOMETRIES = ((0, 0), (3, 4), (40, 4))
 # more labels than the round kernels take (ROUND_MAX_LABELS): the phase
 # kernels take one label at a time there, with the receiving cell's
 # statistics in a pass of their own; the check skips the round kernels there
@@ -83,7 +96,10 @@ def random_dense_state(H, W, L, seed, ties=False, device="cpu", dtype=torch.floa
     return {k: t(v) for k, v in arrays.items()}, t(hc), t(vc)
 
 
-def _compare(name, label, out, ref, log):
+def _compare(name, label, out, ref, log, exact=False):
+    """The largest abs error of ``out`` against ``ref`` over the state
+    arrays; raise where it passes the tolerance, or (``exact``) where any
+    array differs from ``ref`` bit for bit."""
     errs, worst = {}, 0.0
     for k in STATE_KEYS:
         if ref[k].numel() == 0:
@@ -91,6 +107,9 @@ def _compare(name, label, out, ref, log):
             continue
         err = float((out[k] - ref[k]).abs().max())
         tol = RTOL * (1.0 + float(ref[k].abs().max()))
+        if exact and not torch.equal(out[k], ref[k]):
+            raise AssertionError(f"{name} {label}: {k} differs from the plain version (max abs "
+                                 f"err {err:.3e})")
         if not err <= tol:      # also catches NaN
             raise AssertionError(f"{name} {label}: {k} max abs err {err:.3e} > tol {tol:.3e}")
         errs[k] = err
@@ -99,10 +118,27 @@ def _compare(name, label, out, ref, log):
     return worst
 
 
+def round_at(state, hc, vc, n_rounds, tile, out=None):
+    """``round_update`` at the geometry ``tile`` (``launch_round_update``) on
+    the card; on the CPU the plain version, which every geometry equals."""
+    if state["u"].device.type == "cpu":
+        return round_update(state, hc, vc, n_rounds, out=out)
+    return launch_round_update(state, hc, vc, n_rounds, tile, out=out)
+
+
+def round_sharded_at(window, slabs, hc_win, vc_win, cost_slabs, row0, H, W, n_rounds, tile):
+    """``round_update_sharded`` at the geometry ``tile``, as ``round_at``."""
+    args = (window, slabs, hc_win, vc_win, cost_slabs, row0, H, W, n_rounds)
+    if window["u"].device.type == "cpu":
+        return round_update_sharded(*args)
+    return launch_round_update_sharded(*args, tile=tile)
+
+
 def check_grid_kernels(device="cuda", shapes=CHECK_SHAPES, seed=0, log=print):
-    """Run every kernel launch at ``shapes`` against its plain version;
-    raise AssertionError on the first disagreement.  Returns the max abs
-    error per kernel wrapper name."""
+    """Run every kernel launch at ``shapes`` against its plain version; the
+    round kernel at each of ``ROUND_GEOMETRIES``, bit-equal.  Raise
+    AssertionError on the first disagreement.  Returns the max abs error
+    per kernel wrapper name."""
     worst = {"phase_update": 0.0, "round_update": 0.0}
     for i, (H, W, L) in enumerate(shapes):
         for ties in (False, True):
@@ -116,11 +152,13 @@ def check_grid_kernels(device="cuda", shapes=CHECK_SHAPES, seed=0, log=print):
                 worst["phase_update"] = max(worst["phase_update"], err)
                 state = ref     # chain the phases, so later launches start from rich state
             for n_rounds in (1, 2) if L <= ROUND_MAX_LABELS else ():
-                out = round_update(state, hc, vc, n_rounds)
-                torch.cuda.synchronize()
                 ref = round_update_ref(state, hc, vc, n_rounds)
-                err = _compare("round_update", f"{tag} n_rounds={n_rounds}", out, ref, log)
-                worst["round_update"] = max(worst["round_update"], err)
+                for tile in ROUND_GEOMETRIES:
+                    out = round_at(state, hc, vc, n_rounds, tile)
+                    torch.cuda.synchronize()
+                    err = _compare("round_update", f"{tag} n_rounds={n_rounds} tile={tile}", out,
+                                   ref, log, exact=True)
+                    worst["round_update"] = max(worst["round_update"], err)
                 state = ref
     return worst
 
@@ -198,14 +236,16 @@ def check_sharded_grid_kernels(device="cuda", shapes=CHECK_SHAPES, shard_counts=
     """Every sharded kernel launch on every shard, at ``shapes`` and
     ``shard_counts`` (all shards on ``device``), against its plain version on
     the same window and slabs: each ``PHASE_PARAMS`` phase, then
-    ``n_rounds`` 1 and 2, chained.  Raise AssertionError on the first
-    disagreement; return the max abs error per kernel wrapper name.  Logs
-    one line per shape, input kind and shard count."""
+    ``n_rounds`` 1 and 2 at each of ``ROUND_GEOMETRIES`` (bit-equal),
+    chained.  Raise AssertionError on the first disagreement; return the max
+    abs error per kernel wrapper name.  Logs one line per shape, input kind
+    and shard count."""
     worst = {"phase_update_sharded": 0.0, "round_update_sharded": 0.0}
     for i, (H, W, L) in enumerate(shapes):
         steps = [(phase_update_sharded, phase_update_sharded_ref, p) for p in PHASE_PARAMS]
         if L <= ROUND_MAX_LABELS:
-            steps += [(round_update_sharded, round_update_sharded_ref, (nr,)) for nr in (1, 2)]
+            steps += [(lambda *a, tile=tile: round_sharded_at(*a, tile), round_update_sharded_ref,
+                       (nr,)) for nr in (1, 2) for tile in ROUND_GEOMETRIES]
         for ties in (False, True):
             state, hc, vc = random_dense_state(H, W, L, seed + i, ties, device)
             tag = f"{H}x{W}x{L}{' ties' if ties else ''}"
@@ -224,9 +264,11 @@ def check_sharded_grid_kernels(device="cuda", shapes=CHECK_SHAPES, shard_counts=
                         out = kern(*args)
                         torch.cuda.synchronize()
                         ref = ref_fn(*args)
+                        name = ref_fn.__name__.removesuffix("_ref")
                         label = f"{tag} shards={n} shard {k} row0={lay.row0[k]} {params}"
-                        err = _compare(kern.__name__, label, out, ref, lambda line: None)
-                        errs[kern.__name__] = max(errs.get(kern.__name__, 0.0), err)
+                        err = _compare(name, label, out, ref, lambda line: None,
+                                       exact=ref_fn is round_update_sharded_ref)
+                        errs[name] = max(errs.get(name, 0.0), err)
                         new.append(ref)     # chain, so later launches start from rich state
                     windows = new
                 for name, err in errs.items():
@@ -246,7 +288,8 @@ def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=p
     phases and cost pass of each ``ROUND_MODES`` mode (the second input with
     ties; held as ``check_round_primal`` holds them), the sharded kernels
     over ``shards`` shards on ``device``, as ``ShardedGridPotts`` captures
-    its sweeps.  Returns the max abs error per kernel wrapper name (the
+    its sweeps; the round kernels at each of ``ROUND_GEOMETRIES``,
+    bit-equal.  Returns the max abs error per kernel wrapper name (the
     relative error for ``primal_cost``)."""
     from .capture import Graphs
 
@@ -275,8 +318,8 @@ def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=p
 
     dense = [("phase_update", p, lambda s, p=p: phase_update(s, hc, vc, *p, out=out),
               lambda s, p=p: phase_update_ref(s, hc, vc, *p)) for p in PHASE_PARAMS]
-    dense += [("round_update", (2,), lambda s: round_update(s, hc, vc, 2, out=out),
-               lambda s: round_update_ref(s, hc, vc, 2))]
+    dense += [("round_update", (2, tile), lambda s, tile=tile: round_at(s, hc, vc, 2, tile, out),
+               lambda s: round_update_ref(s, hc, vc, 2)) for tile in ROUND_GEOMETRIES]
     dense += [("phase_update_v1", p, lambda s, p=p: phase_update_v1(v1(p), s, hc, vc),
                lambda s, p=p: phase_update_ref(s, hc, vc, *p)) for p in ((0, 1, 0.0), (2, 2, 1.0))]
     labels = torch.zeros((H, W), dtype=torch.int32, device=device)
@@ -295,7 +338,8 @@ def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=p
 
     sharded = [("phase_update_sharded", phase_update_sharded, phase_update_sharded_ref, p)
                for p in PHASE_PARAMS]
-    sharded += [("round_update_sharded", round_update_sharded, round_update_sharded_ref, (2,))]
+    sharded += [("round_update_sharded", lambda *a, tile=tile: round_sharded_at(*a, tile),
+                 round_update_sharded_ref, (2,)) for tile in ROUND_GEOMETRIES]
     worst = {}
     for name, params, kern, ref_fn in dense:
         g = jit.jit(lambda s, kern=kern: dict(kern(s)), f"{name}{params} replay")
@@ -304,7 +348,7 @@ def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=p
             got = g(state)
             torch.cuda.synchronize()
             err = _compare(name, f"{H}x{W}x{L} {params} replay {k}", got, ref_fn(state),
-                           lambda line: None)
+                           lambda line: None, exact=name == "round_update")
             worst[name] = max(worst.get(name, 0.0), err)
     for mode in ROUND_MODES:
         g = jit.jit(lambda s, mode=mode: rounding(s, mode), f"round_primal {mode.value} replay")
@@ -316,15 +360,15 @@ def check_replays(device="cuda", shape=CHECK_SHAPES[-1], shards=4, seed=0, log=p
                                got["cost"], *rounding_ref(state, mode))
             worst["round_phase_update"] = 0.0
             worst["primal_cost"] = max(worst.get("primal_cost", 0.0), err)
-    for name, kern, ref_fn, params in sharded:
-        g = jit.jit(sweep(kern, params), f"{name}{params} sweep replay")
+    for j, (name, kern, ref_fn, params) in enumerate(sharded):
+        g = jit.jit(sweep(kern, params), f"{name}{params} sweep {j} replay")
         for k in range(2):
             windows = lay.split(random_dense_state(H, W, L, seed + 1 + k, False, device)[0])
             outs = g(windows)
             torch.cuda.synchronize()
             for i, (got, ref) in enumerate(zip(outs, sweep_ref(ref_fn, params, windows))):
-                err = _compare(name, f"{H}x{W}x{L} {params} shard {i} replay {k}", got, ref,
-                               lambda line: None)
+                err = _compare(name, f"{H}x{W}x{L} {params} shard {i} sweep {j} replay {k}", got,
+                               ref, lambda line: None, exact=ref_fn is round_update_sharded_ref)
                 worst[name] = max(worst.get(name, 0.0), err)
     st = jit.stats()
     log(f"check replays at {H}x{W}x{L} ({shards} shards for the sharded kernels): "

@@ -38,8 +38,8 @@ _SIGNATURES = {
     # strides, L, n, W, row0, H, ..., device, stream
     "lpmp_grid_phase_update_sharded": [_PP, _LLP, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "lpmp_grid_round_update_sharded": [_PP, _LLP] + [_I] * 9 + [_P],
-    # L, n_rounds, tile_rows, tile_cols, out[6]
-    "lpmp_grid_round_tile": [_I, _I, _I, _I, _LLP],
+    # L, n_rounds, n, W, tile_rows, tile_cols, sharded, device, out[15]
+    "lpmp_grid_round_tile": [_I] * 8 + [_LLP],
 }
 
 

@@ -64,7 +64,7 @@ from .reductions import min_except
 
 STATE_KEYS = ("u", "hm1", "hm2", "vm1", "vm2")
 
-# Largest label count the round kernel's shared-memory tile takes
+# Largest label count the round kernel's shared-memory ring takes
 # (kMaxRoundLabels in csrc/grid_potts.cu).
 ROUND_MAX_LABELS = 32
 # Rows of each halo slab of the sharded layout (kSlab in csrc/grid_potts.cu):
@@ -494,10 +494,12 @@ def round_update(state, hc, vc, n_rounds: int = 1, out=None):
 
 
 def launch_round_update(state, hc, vc, n_rounds: int, tile=(0, 0), out=None):
-    """``round_update``'s kernel on CUDA tensors, with the tile ``(T_r,
-    T_c)`` of cells each block writes; ``(0, 0)`` takes the kernel's own
-    choice (``round_tile``).  Another tile is for a tile sweep.  ``out`` as
-    for ``phase_update``."""
+    """``round_update``'s kernel on CUDA tensors, with the geometry ``tile``
+    = ``(T_r, T_c)``: each block writes the T_r rows of one segment of a
+    T_c-column strip; a zero takes the kernel's own choice there
+    (``round_tile``).  Another geometry is for a sweep and the checks; every
+    geometry gives the same result bit for bit.  ``out`` as for
+    ``phase_update``."""
     _check_round_labels(state["u"].shape[0], "round_update")
     out = _launch("lpmp_grid_round_update", state, hc, vc, int(n_rounds), *map(int, tile),
                   out=out)
@@ -508,21 +510,35 @@ def launch_round_update(state, hc, vc, n_rounds: int, tile=(0, 0), out=None):
 def _check_round_labels(L, name):
     if L > ROUND_MAX_LABELS:
         raise ValueError(
-            f"{name}'s shared-memory tile takes at most {ROUND_MAX_LABELS} labels, got L={L}; "
+            f"{name}'s shared-memory ring takes at most {ROUND_MAX_LABELS} labels, got L={L}; "
             f"use {name.replace('round', 'phase')} phases instead")
 
 
-def round_tile(L: int, n_rounds: int, tile=(0, 0)) -> dict:
-    """The round kernels' tile for ``L`` labels: cells written (``rows``,
-    ``cols``) and loaded (``rows_loaded``, ``cols_loaded``) per block,
-    ``threads`` per block and ``smem`` bytes of shared memory.  ``tile``
+ROUND_TILE_KEYS = ("rows", "cols", "rows_loaded", "cols_loaded", "band_rows", "bands_ahead",
+                   "ring_rows", "threads", "smem", "sized_blocks_per_sm", "blocks_per_sm",
+                   "strips", "segments", "waves", "wide_copies")
+
+
+def round_tile(L: int, n_rounds: int, H: int, W: int, tile=(0, 0), sharded: bool = False) -> dict:
+    """The round kernel's geometry on the current CUDA device for ``L``
+    labels over ``H`` rows (a shard's window rows where ``sharded``) of ``W``
+    columns: per block the segment's written rows and the strip's written
+    columns (``rows``, ``cols``), the rows streamed and columns loaded
+    (``rows_loaded``, ``cols_loaded``), the rows of a band, the bands in
+    flight, the ring's rows, ``threads``, ``smem`` bytes of shared memory,
+    the blocks per SM the ring was sized for and those the card holds (its
+    occupancy at the kernel's registers); the ``strips``, ``segments`` and
+    ``waves`` of the launch; whether u, vm1, vm2 and vc move 16 bytes at a
+    time (``wide_copies``, where their arrays are 16-byte aligned).  ``tile``
     as for ``launch_round_update``.  Needs the built kernel library."""
-    out = (ctypes.c_longlong * 6)()
+    out = (ctypes.c_longlong * len(ROUND_TILE_KEYS))()
     lib = _cuda_build.library()
-    rc = lib.lpmp_grid_round_tile(int(L), int(n_rounds), *map(int, tile), out)
+    rc = lib.lpmp_grid_round_tile(int(L), int(n_rounds), int(H), int(W), *map(int, tile),
+                                  int(bool(sharded)), torch.cuda.current_device(), out)
     if rc != 0:
-        raise ValueError(f"no round kernel tile for L={L}, n_rounds={n_rounds}, tile={tile}")
-    return dict(zip(("rows", "cols", "rows_loaded", "cols_loaded", "threads", "smem"), out))
+        raise ValueError(f"no round kernel geometry for L={L}, n_rounds={n_rounds}, "
+                         f"{H}x{W}, tile={tile}")
+    return dict(zip(ROUND_TILE_KEYS, out))
 
 
 def phase_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int, W: int,
@@ -554,14 +570,24 @@ def round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H
     if n_rounds not in (1, 2):
         raise ValueError(f"n_rounds must be 1 or 2, got {n_rounds!r}")
     named = _sharded_tensors(window, slabs, hc_win, vc_win, cost_slabs)
-    dev = _device_of_tensors(named.values())
-    L, n = _check_sharded_args(named, row0, H, W, cuda=dev.type == "cuda")
-    if dev.type == "cpu":
+    if _device_of_tensors(named.values()).type == "cpu":
+        _check_sharded_args(named, row0, H, W, cuda=False)
         return _plain_into(out, named, round_update_sharded_ref(
             window, slabs, hc_win, vc_win, cost_slabs, row0, H, W, n_rounds))
+    return launch_round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0, H, W,
+                                       n_rounds, out=out)
+
+
+def launch_round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H: int,
+                                W: int, n_rounds: int, tile=(0, 0), out=None):
+    """``round_update_sharded``'s kernel on CUDA tensors, with the geometry
+    ``tile`` as for ``launch_round_update`` (the segments split the window's
+    rows)."""
+    named = _sharded_tensors(window, slabs, hc_win, vc_win, cost_slabs)
+    L, n = _check_sharded_args(named, row0, H, W, cuda=True)
     _check_round_labels(L, "round_update_sharded")
     out = _launch_sharded("lpmp_grid_round_update_sharded", named, L, n, row0, H, W,
-                          int(n_rounds), 0, 0, out=out)
+                          int(n_rounds), *map(int, tile), out=out)
     round_update_sharded.launches += 1
     return out
 

@@ -22,7 +22,11 @@ On one NVIDIA GPU, at the main path's 1000x1000 grid with 4 labels:
   phase tuple and ``primal_cost``, their plain versions, and one rounding
   pass of ``GridPottsModel`` (``round_primal``'s captured call, without the
   labels' copy to the host) on the kernels and on the plain ops (where the
-  package has them).
+  package has them);
+- the round kernels with two rounds a launch: K1 (``round_update``) and K3
+  (``round_update_sharded``) on the window of 1 shard and on one window of
+  4 shards, each with its registers (ptxas), shared memory, threads and
+  blocks per SM (the occupancy those allow on the card).
 
 A kernel's time is one replay of a CUDA graph that holds ``LAUNCHES``
 back-to-back launches, each on the state the one before wrote, over CUDA
@@ -293,6 +297,92 @@ def round_primal_times(pkg) -> dict:
     return out
 
 
+def round_registers(ptxas) -> dict:
+    """{(n_rounds, sharded, label count or None, 16-byte copies or None):
+    registers} of the round kernels from the build's ptxas lines (the
+    entry's name, then its "Used N registers" line)."""
+    out, key = {}, None
+    for ln in ptxas:
+        m = re.search(r"entry function '\S*?grid_round_kernelILi(\d)ELb([01])E(?:Li(\d+)E)?"
+                      r"(?:Lb([01])E)?", ln)
+        if m:
+            key = (int(m.group(1)), m.group(2) == "1", int(m.group(3)) if m.group(3) else None,
+                   m.group(4) == "1" if m.group(4) else None)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and key is not None:
+            out[key] = int(m.group(1))
+            key = None
+    return out
+
+
+def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
+    """Blocks of a kernel an H100 SM holds: 2048 threads, 65536 registers
+    (allocated per warp in units of 256), 228 KB of shared memory with 1 KB
+    kept per block, at most 32 blocks."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // 256) * 256
+    by_regs = 65536 // max(per_warp * warps, 1)
+    return min(32, 2048 // (32 * warps), by_regs, 233472 // (smem + 1024))
+
+
+def round_times(pkg, ptxas) -> dict:
+    """Per launch of the round kernels at the main path's grid with two
+    rounds a launch, by graph replay as ``phase_times``: {name: {"us",
+    "bound_us", "share", "bound_by", "registers", "smem", "threads",
+    "blocks_per_sm", "geometry"}}.  The bound counts the state read and
+    written, the costs and (a window) every slab row read once; blocks per
+    SM from registers, threads and shared memory (``blocks_per_sm``); the
+    geometry as the package's ``round_tile`` reports it."""
+    import torch
+    gk = pkg.ops.grid_kernels
+    RowShards = pkg.parallel.grid.RowShards
+    u, hc_np, vc_np = pkg.random_grid(H, W, L, seed=SEED)
+    m = pkg.GridPottsModel(u, hc_np, vc_np, device="cuda", dtype=torch.float32)
+    state = {k: v.clone() for k, v in m.run_fast(3, "uniform", kernel="cuda").state.items()}
+    hc, vc = m.hc, m.vc
+    regs = round_registers(ptxas)
+    kl = L if L <= 4 else None
+
+    def reg_of(sharded, wide):  # the kernel the launch takes; a package with one kernel, that one
+        return regs.get((2, sharded, kl, wide), regs.get((2, sharded, None, None)))
+
+    def geometry(n, sharded):
+        try:
+            return gk.round_tile(L, 2, n, W, sharded=sharded)
+        except TypeError:   # a package whose round_tile takes no shape
+            return gk.round_tile(L, 2)
+
+    fns = {"round_update": captured_chain(lambda s: gk.round_update(s, hc, vc, 2), state)}
+    sizes = {"round_update": (nbytes(list(state.values()) + [hc, vc]), nbytes(state.values()),
+                              H * W * L * 2, geometry(H, False), False)}
+    for n in (1, 4):
+        lay = RowShards(H, W, ["cuda:0"] * n)
+        wins, costs = lay.split(state), lay.split_costs(hc, vc)
+        k = 0 if n == 1 else 1
+        slabs, cslabs = lay.slabs(wins)[k], lay.slabs(costs)[k]
+        args = (slabs, costs[k]["hc"], costs[k]["vc"], cslabs, lay.row0[k], H, W, 2)
+        w = wins[k]
+        halo = [*(x for pair in slabs.values() for x in pair), costs[k]["hc"], costs[k]["vc"],
+                *cslabs["hc"], *cslabs["vc"]]
+        rows = min(w["u"].shape[1], H - lay.row0[k])
+        name = f"round_update_sharded {n} shard{'s' if n > 1 else ''}"
+        fns[name] = captured_chain(lambda s, args=args: gk.round_update_sharded(s, *args), w)
+        sizes[name] = (nbytes(list(w.values()) + halo), nbytes(w.values()), rows * W * L * 2,
+                       geometry(w["u"].shape[1], True), True)
+    out = {}
+    for name, ms in in_turns(fns).items():
+        ins, outs, upd, geom, sharded = sizes[name]
+        r = reg_of(sharded, bool(geom.get("wide_copies")))
+        threads, smem = geom["threads"], geom["smem"]
+        out[name] = dict(_entry(ms, (ins, outs), upd), registers=r, smem=smem, threads=threads,
+                         blocks_per_sm=blocks_per_sm(r, threads, smem) if r else None,
+                         geometry=geom)
+    del fns, m
+    gc.collect()
+    return out
+
+
 def run_fast_times(pkg) -> dict:
     """{config: {mode: it/s}} of the captured run_fast(RUN_FAST_N)."""
     import torch
@@ -342,6 +432,7 @@ def main() -> None:
            "phases": phase_times(pkg, PHASE_PARAMS), "run_fast": run_fast_times(pkg)}
     if hasattr(pkg.ops.grid_kernels, "round_phase_update"):
         rec["rounding"] = round_primal_times(pkg)
+    rec["rounds"] = round_times(pkg, ptxas)
     rec["seconds"] = time.perf_counter() - t0
     tag = os.path.dirname(os.path.dirname(pkg.__file__))
     for name, (ins, bra) in rec["sass"].items():
@@ -355,6 +446,11 @@ def main() -> None:
             f"{mode} {v['its']:.1f} it/s ({v['ms']:.3f} ms)" for mode, v in per.items()))
     for line in rounding_lines(rec.get("rounding", {})):
         print(f"{tag} {line} on {card}")
+    for name, v in rec["rounds"].items():
+        print(f"{tag} {name}: {v['us']:.1f} us a launch ({100 * v['share']:.0f} % of "
+              f"{v['bound_us']:.1f}), {v['registers']} registers, {v['smem']} B of shared memory, "
+              f"{v['threads']} threads, {v['blocks_per_sm']} blocks per SM, at {H}x{W} L={L} "
+              f"on {card}")
     print(json.dumps(rec))
 
 

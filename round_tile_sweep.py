@@ -1,13 +1,20 @@
-"""Tile sweep of the grid round kernel (K1, csrc/grid_potts.cu) on one NVIDIA GPU.
+"""Geometry sweep of the grid round kernel (K1, csrc/grid_potts.cu) on one NVIDIA GPU.
 
     python3 round_tile_sweep.py
 
-Times ``round_update(n_rounds=2)`` at 1000 x 1000, L = 4 (the main path's
-launch) for each tile of TILES that fits, the default first, after checking that
-every tile gives the default tile's result bit for bit.  Times are CUDA events over
-20 back-to-back launches, median of 3 runs taken in turns over all tiles.
-Prints the card's name and power limit, one line per tile, and a last JSON
-line.  Exits non-zero without a CUDA device.
+Each block of the round kernel writes the T_r rows of one segment of a
+T_c-column strip, streaming the segment's T_r + 2P rows down the strip's
+T_c + 2P loaded columns through a ring of rows in shared memory (P = 4 at two
+rounds a launch).  This script times ``round_update(n_rounds=2)`` at 1000 x
+1000, L = 4 (the main path's launch) for each geometry ``(T_r, T_c)`` of
+TILES that fits, the kernel's own first, after checking that every geometry
+gives the kernel's own result bit for bit.  A zero takes the kernel's own
+choice for that dimension (T_r splits the rows so that the strips times the
+segments fill one wave).  Times are CUDA events over 20 back-to-back launches,
+median of 3 runs taken in turns over all geometries.  Prints the card's name
+and power limit, one line per geometry (with its ring, threads, shared
+memory, blocks per SM and waves, as ``round_tile`` reports them), and a last
+JSON line.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,9 +33,11 @@ H, W, L, SEED, N_ROUNDS, REPS = 1000, 1000, 4, 1, 2, 20
 LAUNCH_BYTES = 4 * L * (H * W + 2 * H * (W - 1) + 2 * (H - 1) * W) * 2 \
     + 4 * (H * (W - 1) + (H - 1) * W)      # state read and written, costs read
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
-# (T_r, T_c): cells each block writes; (0, 0) is the kernel's default
-TILES = ((0, 0), (10, 56), (8, 56), (4, 56), (24, 56), (32, 56), (16, 40), (10, 40),
-         (28, 24), (20, 24), (16, 24), (24, 8), (12, 88))
+# (T_r, T_c): rows of a segment and columns of a strip each block writes; a
+# zero is the kernel's own choice there.  Segments from 36 to 250 rows in the
+# kernel's own strips, then strips of 24 to 120 columns with their own rows.
+TILES = ((0, 0), (36, 0), (48, 0), (56, 0), (84, 0), (125, 0), (250, 0),
+         (0, 24), (0, 40), (0, 88), (0, 120), (0, 8))
 
 
 def main() -> None:
@@ -48,15 +57,16 @@ def main() -> None:
     tiles = []
     for tile in TILES:
         try:
-            info[tile] = round_tile(L, N_ROUNDS, tile)
+            info[tile] = round_tile(L, N_ROUNDS, H, W, tile)
         except ValueError:
-            print(f"sweep: tile {tile} does not fit the kernel's shared memory or threads: skipped")
+            print(f"sweep: geometry {tile} does not fit the kernel's shared memory or threads: "
+                  f"skipped")
             continue
         tiles.append(tile)
         out = launch_round_update(s, hc, vc, N_ROUNDS, tile)
         torch.cuda.synchronize()
         if not all(torch.equal(out[k], ref[k]) for k in ref):
-            sys.exit(f"round_tile_sweep: tile {tile} differs from the default tile's result")
+            sys.exit(f"round_tile_sweep: geometry {tile} differs from the kernel's own result")
         fns[tile] = lambda tile=tile: launch_round_update(s, hc, vc, N_ROUNDS, tile)
     times = {t: [] for t in tiles}
     for order in (tiles, tiles[::-1], tiles):
@@ -72,13 +82,15 @@ def main() -> None:
     rows = []
     for t in tiles:
         us, i = statistics.median(times[t]), info[t]
-        rows.append({"tile": [i["rows"], i["cols"]], "loaded": [i["rows_loaded"], i["cols_loaded"]],
-                     "threads": i["threads"], "smem": i["smem"], "us": us,
+        rows.append({"tile": list(t), "geometry": i, "us": us,
                      "spread_us": max(times[t]) - min(times[t]), "default": t == (0, 0)})
-        print(f"sweep: T {i['rows']:2d} x {i['cols']:3d} (S {i['rows_loaded']} x "
-              f"{i['cols_loaded']}, {i['threads']} threads, {i['smem']} B): {us:.1f} us/launch "
-              f"({LAUNCH_BYTES / us / 1e3:.1f} GB/s, {100 * bound_us / us:.1f} % of the "
-              f"{bound_us:.1f} us bound){' default' if t == (0, 0) else ''} on {card}")
+        print(f"sweep: {i['rows']:4d} rows x {i['cols']:3d} columns written ({i['rows_loaded']} "
+              f"x {i['cols_loaded']} streamed; ring {i['ring_rows']} rows, {i['bands_ahead']} "
+              f"bands ahead; {i['threads']} threads, {i['smem']} B, {i['blocks_per_sm']} "
+              f"blocks/SM; {i['strips']} x {i['segments']} blocks, {i['waves']} wave(s)): "
+              f"{us:.1f} us/launch ({LAUNCH_BYTES / us / 1e3:.1f} GB/s, "
+              f"{100 * bound_us / us:.1f} % of the {bound_us:.1f} us bound)"
+              f"{' default' if t == (0, 0) else ''} on {card}")
     print(json.dumps({"round_tile_sweep": rows, "bound_us": bound_us, "card": card}))
 
 

@@ -11,9 +11,10 @@ import torch
 
 import chip_smoke
 from lp_mp_tpu_torch import GridPottsModel, random_grid
-from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, COST_RTOL, ROUND_MODES, RTOL,
-                                          WIDE_LABEL_SHAPES, check_grid_kernels, check_phase_v1,
-                                          check_replays, check_round_primal, random_dense_state)
+from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, COST_RTOL, ROUND_GEOMETRIES, ROUND_MODES,
+                                          RTOL, WIDE_LABEL_SHAPES, check_grid_kernels,
+                                          check_phase_v1, check_replays, check_round_primal,
+                                          random_dense_state)
 from lp_mp_tpu_torch.ops import grid_kernels as gk
 
 pytestmark = pytest.mark.gpu
@@ -30,9 +31,11 @@ def test_kernels_match_plain_versions(cuda):
     gk.reset_launch_counts()
     worst = check_grid_kernels(cuda, log=lambda line: None)
     assert set(worst) == {"phase_update", "round_update"}
-    # per shape: two inputs, each through six phase launches and two round launches
+    # per shape: two inputs, each through six phase launches and two round
+    # launches at each geometry
     expect = dict.fromkeys(gk.launch_counts(), 0)
-    expect.update(phase_update=12 * len(CHECK_SHAPES), round_update=4 * len(CHECK_SHAPES))
+    expect.update(phase_update=12 * len(CHECK_SHAPES),
+                  round_update=4 * len(ROUND_GEOMETRIES) * len(CHECK_SHAPES))
     assert gk.launch_counts() == expect
 
 

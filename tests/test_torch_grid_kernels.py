@@ -18,7 +18,8 @@ import torch
 from lp_mp_tpu.models.grid_potts import GridPottsModel as JaxGrid
 from lp_mp_tpu.ops.pallas_grid import phase_update as jax_phase_update_v1
 from lp_mp_tpu.ops.pallas_grid import phase_update_v2, round_update_v2
-from lp_mp_tpu_torch.kernel_check import CHECK_SHAPES, PHASE_PARAMS, random_dense_state
+from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, PHASE_PARAMS, ROUND_GEOMETRIES,
+                                          random_dense_state)
 from lp_mp_tpu_torch.ops import _cuda_build
 from lp_mp_tpu_torch.ops import grid_kernels as gk
 
@@ -121,18 +122,59 @@ def test_wrappers_refuse_what_no_route_takes():
         gk.round_update(meta, hc, vc, 1)
 
 
+def _kernel_constants():
+    """The round kernel's integer constants, as csrc/grid_potts.cu sets them."""
+    import re
+    from pathlib import Path
+    src = (Path(gk.__file__).parent.parent / "csrc" / "grid_potts.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
 def test_check_shapes_cover_the_round_tiles():
-    """kernel_check.CHECK_SHAPES, which chip_smoke.py and the gpu tests run on
-    the card, keeps ragged shapes around the round kernel's tiles (12 x 56
-    cells at L=4, n_rounds=2) and the main path's grid last."""
+    """kernel_check.CHECK_SHAPES and ROUND_GEOMETRIES, which chip_smoke.py and
+    the gpu tests run on the card, cross the round kernel's strips, segments
+    and ring: the kernel's own geometry first, then segments of 3 rows
+    (shorter than 2P at either n_rounds) in strips of 4 columns, then
+    segments longer than any ring; ragged and odd widths, heights of at most
+    2P, the label counts of every cell-update path, widths that take the
+    16-byte copies at every label count that has them, and the main path's
+    grid last."""
     assert CHECK_SHAPES[-1] == (1000, 1000, 4)
+    assert ROUND_GEOMETRIES[0] == (0, 0)
     small = CHECK_SHAPES[:-1]
+    short, tall = ROUND_GEOMETRIES[1], ROUND_GEOMETRIES[2]
+    consts = _kernel_constants()
+    for P in (2, 4):                                   # n_rounds 1 and 2
+        assert short[0] < 2 * P
+        ring = (2 * P + 1 + consts["kRoundMaxAhead"]) * consts["kRoundBand"]
+        assert tall[0] + 2 * P > ring                  # the ring wraps
+    rows, cols = short
     assert any(W % 4 and W % 56 and W > 56 for _, W, _ in small)   # ragged, not 16-byte rows
-    assert any(H < 12 and W > 56 and L == 4 for H, W, L in small)   # below one tile's rows
+    assert any(W % 2 and W > cols for _, W, _ in small)             # odd widths
+    assert any(W % cols and W > cols and H % rows and H > rows for H, W, _ in small)  # last partial
+    assert any(H <= 4 and W > cols for H, W, _ in small)            # H <= 2P at n_rounds 1
+    assert any(4 < H <= 8 and W > cols for H, W, _ in small)        # H <= 2P at n_rounds 2
+    assert any(H > tall[0] for H, _, _ in small)
     assert {1, 2} <= {W for _, W, _ in small}
     assert {1, 2} <= {H for H, _, _ in small}
-    assert {1, gk.ROUND_MAX_LABELS} <= {L for _, _, L in small}
+    assert {1, 5, 8, gk.ROUND_MAX_LABELS} <= {L for _, _, L in small}
+    # the 16-byte copies of the W-wide arrays (W a multiple of 4, L <= 4), the
+    # ring wrapping under them too
+    assert {1, 2, 3, 4} <= {L for _, W, L in small if W % 4 == 0}
+    assert any(W % 4 == 0 and H > tall[0] and L <= 4 for H, W, L in small)
     assert all(L <= gk.ROUND_MAX_LABELS for _, _, L in CHECK_SHAPES)
+
+
+@pytest.mark.parametrize("H,W,L", CHECK_SHAPES[:-1])
+def test_small_geometry_crosses_two_strips_and_two_segments(H, W, L):
+    """Every small check shape wider than the short geometry's strips and
+    taller than its segments crosses at least two of each (the grid's own
+    one- and two-column and -row shapes cannot)."""
+    rows, cols = ROUND_GEOMETRIES[1]
+    strips, segments = -(-W // cols), -(-H // rows)
+    assert strips >= 2 or W <= cols
+    assert segments >= 2 or H <= rows
+    assert (strips >= 2 and segments >= 2) or min(H, W) <= 2
 
 
 def test_cuda_argument_checks():

@@ -86,6 +86,21 @@ def test_sharded_cpu_route_refuses_aliased_out():
         gk.round_update_sharded(*args, 2, out={**fresh_out(w[0]), "u": w[0]["u"]})
 
 
+def test_sharded_launch_refuses_a_bad_out_before_launching():
+    """``launch_round_update_sharded``, the CUDA-only entry of the sharded
+    round kernel at a given geometry, checks ``out`` before it launches."""
+    from lp_mp_tpu_torch.parallel.grid import RowShards
+    state, hc, vc = random_dense_state(12, 9, 3, seed=0)
+    lay = RowShards(12, 9, ["cpu"] * 2)
+    w, c = lay.split(state), lay.split_costs(hc, vc)
+    s, cs = lay.slabs(w), lay.slabs(c)
+    args = (w[1], s[1], c[1]["hc"], c[1]["vc"], cs[1], lay.row0[1], 12, 9, 2)
+    with pytest.raises(ValueError, match="shares memory"):
+        gk.launch_round_update_sharded(*args, tile=(3, 4), out={**fresh_out(w[1]), "vm2": w[1]["vm2"]})
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.launch_round_update_sharded(*args, out={**fresh_out(w[1]), "u": torch.zeros(3, 5, 9)})
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("n", [0, 1, 2, 3])
 def test_run_fast_use_jit_on_and_off_are_equal(mode, n):

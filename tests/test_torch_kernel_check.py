@@ -56,7 +56,7 @@ def test_checks_run_every_kernel_wrapper(no_sync, shapes):
     if all(L > gk.ROUND_MAX_LABELS for _, _, L in shapes):
         assert not rounds           # the round kernels refuse these label counts
     else:
-        assert len(rounds) == 2 * 2 * len(shapes)
+        assert len(rounds) == 2 * 2 * len(kc.ROUND_GEOMETRIES) * len(shapes)
     assert set(gk.launch_counts().values()) == {0}     # the CPU never launches
 
 
@@ -67,8 +67,8 @@ def test_replays_cover_every_phase_tuple(no_sync):
                                    "round_phase_update", "primal_cost", "phase_update_sharded",
                                    "round_update_sharded"), 0.0)
     # one graph per phase tuple of each phase kernel, two of the v1 contract,
-    # one per round kernel, one rounding per mode; two replays each
-    n_graphs = 2 * len(kc.PHASE_PARAMS) + 2 + 2 + len(kc.ROUND_MODES)
+    # one per round kernel and geometry, one rounding per mode; two replays each
+    n_graphs = 2 * len(kc.PHASE_PARAMS) + 2 + 2 * len(kc.ROUND_GEOMETRIES) + len(kc.ROUND_MODES)
     assert f"{n_graphs} graphs, {2 * n_graphs} replays" in logs[-1]
 
 
@@ -172,3 +172,42 @@ def test_phase_bound_counts_what_the_phase_reads(params, shards, k):
             res = run({a: tuple(map(grown, p)) for a, p in slabs.items()}, c,
                       {a: tuple(map(grown, p)) for a, p in cslabs.items()})
             assert any(not torch.equal(base[n], res[n]) for n in gk.STATE_KEYS)
+
+
+@pytest.mark.parametrize("n_rounds", [1, 2])
+@pytest.mark.parametrize("tile", kc.ROUND_GEOMETRIES, ids=str)
+def test_round_geometries_take_the_plain_version_on_the_cpu(tile, n_rounds):
+    """``round_at`` and ``round_sharded_at`` launch the round kernels at a
+    geometry on the card; on the CPU they give the plain versions, which
+    every geometry equals, and launch nothing."""
+    from lp_mp_tpu_torch.parallel.grid import RowShards
+    gk.reset_launch_counts()
+    H, W, L = 13, 10, 3
+    state, hc, vc = kc.random_dense_state(H, W, L, seed=2)
+    out = kc.round_at(state, hc, vc, n_rounds, tile)
+    ref = gk.round_update_ref(state, hc, vc, n_rounds)
+    assert all(torch.equal(out[k], ref[k]) for k in gk.STATE_KEYS)
+    lay = RowShards(H, W, ["cpu"] * 3)
+    wins, costs = lay.split(state), lay.split_costs(hc, vc)
+    slabs, cslabs = lay.slabs(wins), lay.slabs(costs)
+    for k in range(3):
+        args = (wins[k], slabs[k], costs[k]["hc"], costs[k]["vc"], cslabs[k], lay.row0[k], H, W,
+                n_rounds)
+        got, want = kc.round_sharded_at(*args, tile), gk.round_update_sharded_ref(*args)
+        assert all(torch.equal(got[a], want[a]) for a in gk.STATE_KEYS)
+    assert set(gk.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("key", ["u", "hm1", "hm2", "vm1", "vm2"])
+def test_round_kernels_are_held_bit_equal(key):
+    """The round kernels' comparison is exact: one ulp in any state array
+    fails it, though it lies far inside the tolerance the phase kernels
+    are held to."""
+    state, hc, vc = kc.random_dense_state(6, 7, 2, seed=3)
+    ref = gk.round_update_ref(state, hc, vc, 2)
+    out = {k: v.clone() for k, v in ref.items()}
+    flat = out[key].view(-1)
+    flat[0] = torch.nextafter(flat[0], torch.tensor(float("inf")))
+    assert kc._compare("round_update", "one ulp", out, ref, lambda line: None) > 0.0
+    with pytest.raises(AssertionError, match=f"{key} differs"):
+        kc._compare("round_update", "one ulp", out, ref, lambda line: None, exact=True)

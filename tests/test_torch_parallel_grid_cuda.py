@@ -10,8 +10,8 @@ import pytest
 import torch
 
 from lp_mp_tpu_torch import GridPottsModel, ShardedGridPotts, random_grid
-from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, PHASE_PARAMS, RTOL, SHARD_COUNTS,
-                                          WIDE_LABEL_SHAPES, check_phase_v1,
+from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, PHASE_PARAMS, ROUND_GEOMETRIES, RTOL,
+                                          SHARD_COUNTS, WIDE_LABEL_SHAPES, check_phase_v1,
                                           check_sharded_grid_kernels, random_dense_state)
 from lp_mp_tpu_torch.ops import grid_kernels as gk
 from lp_mp_tpu_torch.parallel.grid import RowShards
@@ -32,10 +32,12 @@ def test_sharded_kernels_match_plain_versions(cuda):
     worst = check_sharded_grid_kernels(cuda, shapes=SMALL_SHAPES, log=lambda line: None)
     assert set(worst) == {"phase_update_sharded", "round_update_sharded"}
     shards = sum(SHARD_COUNTS)
-    # per shape: two inputs, each through six phases and two rounds on every shard
+    # per shape: two inputs, each through six phases and two rounds at each
+    # geometry on every shard
     counts = gk.launch_counts()
     assert counts["phase_update_sharded"] == 2 * 6 * shards * len(SMALL_SHAPES)
-    assert counts["round_update_sharded"] == 2 * 2 * shards * len(SMALL_SHAPES)
+    assert counts["round_update_sharded"] == (2 * 2 * len(ROUND_GEOMETRIES) * shards
+                                              * len(SMALL_SHAPES))
 
 
 def test_phase_v1_matches_plain_version(cuda):
