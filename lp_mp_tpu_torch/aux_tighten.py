@@ -183,9 +183,6 @@ class _AuxPass:
         self._bound_fn = jit.jit(_bound, "lower bound")
         self._cost_fn = jit.jit(self._primal_cost, "evaluate_primal")
 
-    def graph_stats(self) -> dict:
-        return self._jit.stats() if self._jit is not None else {"captures": 0, "capture_s": 0.0}
-
     def _grow(self, new_cap: int) -> None:
         if self._jit is not None:
             self._jit.reset()   # every shape changes: the graphs of the old ones go
@@ -450,9 +447,3 @@ class AuxPasses:
     def fold_into(self, engine) -> None:
         self.mrf.fold_into(engine)
         self.mc.fold_into(engine)
-
-    def graph_stats(self) -> dict:
-        """Captures and capture seconds of both passes' graphs."""
-        a, b = self.mrf.graph_stats(), self.mc.graph_stats()
-        return {"captures": a["captures"] + b["captures"],
-                "capture_s": a["capture_s"] + b["capture_s"]}

@@ -48,15 +48,15 @@ unchanged, or calls ``reset`` when it rebinds them.
 - **Tracing** (``tracing``): each capture is the span ``lpmp.capture`` and
   adds to the counters ``captures`` and ``capture_s`` (its warm-up and
   capture seconds); each replay (copy-in, launch, launch accounting, result
-  clones) is the span ``lpmp.replay``.
+  clones) is the span ``lpmp.replay``.  The kernel wrappers count a launch
+  when their Python code runs, which under capture launches nothing: the
+  capture records those counts (``tracing.recording``) and each replay
+  adds them to the counter ``launches``.
 - **Records.**  Per graph: warm-up and capture seconds, replays, the bytes
   the capture added to the pool (the change of
-  ``torch.cuda.memory_reserved``), the grid-kernel launches it holds and
-  the state tensors it copies at its end (0 for a function that writes its
+  ``torch.cuda.memory_reserved``), the kernel launches it holds and the
+  state tensors it copies at its end (0 for a function that writes its
   results into the donated buffers themselves).
-  The kernel wrappers count a launch when their Python code runs, which
-  under capture records no launch: those counts are taken back after the
-  capture and added again at each replay.
 - **Invalidation.**  ``reset()`` drops every graph and static buffer, for
   an owner whose static data changed (for example the aux passes' growth).
 
@@ -65,6 +65,7 @@ several devices, which one graph cannot hold) calls ``fn`` directly.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import time
@@ -73,7 +74,6 @@ import warnings
 import torch
 
 from . import tracing
-from .ops import grid_kernels
 
 _LEAF = object()     # structure marker of a tensor leaf
 
@@ -125,7 +125,7 @@ class GraphRecord:
     capture_s: float = 0.0
     replays: int = 0
     pool_bytes: int = 0
-    launches: dict = dataclasses.field(default_factory=dict)
+    launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     copies: int = 0     # tensors copied into the donated buffers at the end of a call
 
 
@@ -264,7 +264,6 @@ class Graphed:
             cur.wait_stream(stream)
             torch.cuda.synchronize(dev)
             rec.warmup_s = time.perf_counter() - t0
-            counts = grid_kernels.launch_counts()
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             # no cyclic garbage collection inside the capture: collecting an
@@ -277,7 +276,8 @@ class Graphed:
                 # capture_begin/capture_end, not torch.cuda.graph: that one
                 # also empties the allocator's cache, and every eager call
                 # after it allocates its memory anew
-                with warnings.catch_warnings(record=True) as caught, torch.cuda.stream(stream):
+                with warnings.catch_warnings(record=True) as caught, torch.cuda.stream(stream), \
+                        tracing.recording(rec.launches):
                     warnings.simplefilter("always")
                     graph.capture_begin(pool=owner.pool())
                     try:
@@ -291,8 +291,6 @@ class Graphed:
                         warnings.warn(f"capturing {self.name}: {w.message}", w.category,
                                       stacklevel=3)
             except Exception as e:
-                grid_kernels.add_launch_counts(
-                    {k: counts[k] - v for k, v in grid_kernels.launch_counts().items()})
                 owner.abandon_pool()
                 raise RuntimeError(f"capturing {self.name} as a CUDA graph failed: "
                                    f"{type(e).__name__}: {e}") from e
@@ -301,17 +299,13 @@ class Graphed:
                     gc.enable()
             rec.capture_s = time.perf_counter() - t0
             rec.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        # the wrappers counted launches that the capture only recorded
-        after = grid_kernels.launch_counts()
-        rec.launches = {k: after[k] - counts[k] for k in after if after[k] != counts[k]}
-        grid_kernels.add_launch_counts({k: -v for k, v in rec.launches.items()})
         entry.graph, entry.extra_leaves = graph, extra
 
     def _replay(self, entry: _Entry, leaves: list):
         with torch.cuda.device(self.owner.device):
             self._copy_in(entry, leaves)
             entry.graph.replay()
-            grid_kernels.add_launch_counts(entry.record.launches)
+            tracing.launch(entry.record.launches)
             entry.record.replays += 1
             return self._results(entry, entry.extra_leaves)
 

@@ -54,7 +54,6 @@ phase count; a CUDA graph records the unrolled pass).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Sequence
 
 import numpy as np
@@ -410,7 +409,6 @@ class Engine:
         self._weights_cache_np: dict = {}   # (mode, direction) -> host weights (pull folds)
         self._pull_folds: dict = {}         # direction -> fold callable
         self._pull_w_cache: dict = {}       # (mode, direction) -> folded lane weights
-        self.pull_plan_s = 0.0              # host seconds spent on the pull plans
         if pull is True:
             # explicit opt-in: validate instead of running scatter in silence
             # (pull builds shared-semantics passes from the pull_* hooks)
@@ -427,9 +425,7 @@ class Engine:
         for d in self._dev_plans:
             if pull is True:
                 from .engine_pull import make_pull_pass
-                t = time.perf_counter()
                 self._pass_fns[d], self._pull_folds[d] = make_pull_pass(self, d, pull_ops)
-                self.pull_plan_s += time.perf_counter() - t
             else:
                 self._pass_fns[d] = self._make_pass(self._dev_plans[d], primal=False,
                                                     update_mode=update_mode)

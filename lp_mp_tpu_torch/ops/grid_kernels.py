@@ -49,7 +49,11 @@ memory, so the bytes per iteration fall by that factor (design note in
 
 Each wrapper runs its plain version for CPU tensors and its CUDA kernel for
 CUDA tensors (float32 only, like the Pallas kernels); anything else raises.
-``<wrapper>.launches`` counts the kernel launches and nothing else.
+Each CUDA route counts its kernel launches under the wrapper's name in
+``tracing``'s ``launches`` (``launch_round_update`` and
+``launch_round_update_sharded`` under ``round_update`` and
+``round_update_sharded``, ``primal_cost`` two a call); the plain versions
+count nothing.
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from . import _cuda_build
 from .reductions import min_except
 
@@ -456,7 +461,7 @@ def phase_update(state, hc, vc, recv_color: int, send_color: int,
     _check_colours(recv_color, send_color)
     out = _launch("lpmp_grid_phase_update", state, hc, vc,
                   int(recv_color), int(send_color), float(leave), out=out)
-    phase_update.launches += 1
+    tracing.launch({"phase_update": 1})
     return out
 
 
@@ -477,7 +482,7 @@ def phase_update_v1(params, state, hc, vc, out=None):
     _check_colours(recv_color, send_color)
     out = _launch("lpmp_grid_phase_update", state, hc, vc, recv_color, send_color, leave,
                   out=out)
-    phase_update_v1.launches += 1
+    tracing.launch({"phase_update_v1": 1})
     return out
 
 
@@ -503,7 +508,7 @@ def launch_round_update(state, hc, vc, n_rounds: int, tile=(0, 0), out=None):
     _check_round_labels(state["u"].shape[0], "round_update")
     out = _launch("lpmp_grid_round_update", state, hc, vc, int(n_rounds), *map(int, tile),
                   out=out)
-    round_update.launches += 1
+    tracing.launch({"round_update": 1})
     return out
 
 
@@ -558,7 +563,7 @@ def phase_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0: int, H
             window, slabs, hc_win, vc_win, cost_slabs, row0, H, W, recv_color, send_color, leave))
     out = _launch_sharded("lpmp_grid_phase_update_sharded", named, L, n, row0, H, W,
                           int(recv_color), int(send_color), float(leave), out=out)
-    phase_update_sharded.launches += 1
+    tracing.launch({"phase_update_sharded": 1})
     return out
 
 
@@ -588,7 +593,7 @@ def launch_round_update_sharded(window, slabs, hc_win, vc_win, cost_slabs, row0:
     _check_round_labels(L, "round_update_sharded")
     out = _launch_sharded("lpmp_grid_round_update_sharded", named, L, n, row0, H, W,
                           int(n_rounds), *map(int, tile), out=out)
-    round_update_sharded.launches += 1
+    tracing.launch({"round_update_sharded": 1})
     return out
 
 
@@ -609,7 +614,7 @@ def round_phase_update(state, hc, vc, recv_color: int, send_color: int, leave: f
         return out
     out = _launch("lpmp_grid_round_phase_update", state, hc, vc, int(recv_color),
                   int(send_color), float(leave), out=out, labels=labels)
-    round_phase_update.launches += 1
+    tracing.launch({"round_phase_update": 1})
     return out
 
 
@@ -647,30 +652,5 @@ def primal_cost(state, hc, vc, labels, work=None):
     ptrs = [state[k].data_ptr() for k in STATE_KEYS]
     ptrs += [hc.data_ptr(), vc.data_ptr(), labels.data_ptr(), work.data_ptr()]
     _run("lpmp_grid_primal_cost", dev, ptrs, None, n, L, H, W)
-    primal_cost.launches += 2
+    tracing.launch({"primal_cost": 2})
     return work[0]
-
-
-KERNEL_WRAPPERS = (phase_update, round_update, phase_update_v1, phase_update_sharded,
-                   round_update_sharded, round_phase_update, primal_cost)
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
-
-
-reset_launch_counts()
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-
-
-def add_launch_counts(counts: dict) -> None:
-    """Add ``counts`` ({wrapper name: launches}) to the wrappers' counts: a
-    CUDA graph's replay launches the kernels its capture recorded without
-    running the wrappers (``capture.py``)."""
-    by_name = {fn.__name__: fn for fn in KERNEL_WRAPPERS}
-    for name, n in counts.items():
-        by_name[name].launches += n

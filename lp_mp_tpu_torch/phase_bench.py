@@ -42,9 +42,7 @@ earlier commit unpacked with ``git archive``; this module drops the
 package it came with and imports that one), so one command can time two
 versions in turns; the timing uses only what the package has had since its
 sharded kernels took ``out=``.  The JSON record is the last line of
-standard output.  ``chip_smoke.py`` takes its timing helpers and bounds
-from here and calls ``phase_times`` and ``run_fast_times`` on this
-checkout's package.
+standard output.
 """
 from __future__ import annotations
 

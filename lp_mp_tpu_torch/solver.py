@@ -9,8 +9,8 @@ Replicates ``Solver`` / ``MpRoundingSolver`` (solver.hxx:29-400):
 The engine runs on the solver's ``device`` (the card unless the caller
 passes ``device="cpu"``) in its ``dtype``, its passes captured as CUDA
 graphs with ``use_jit`` (the default, as in the JAX package; every engine
-the solver builds captures anew, and ``n_captures`` and ``capture_seconds``
-count them beside ``n_engine_builds``).  Tightening
+the solver builds captures anew, counted in ``tracing.counters()`` beside
+the solver's ``n_engine_builds``).  Tightening
 grows the factor graph: additions that are triplets on existing pairwise
 or edge factors go into the bucketed side passes of ``aux_tighten``
 (``self.aux``, run after every engine pass); anything else rebuilds the
@@ -92,27 +92,12 @@ class Solver:
         # instead of a full engine rebuild
         self.aux = AuxPasses(use_jit=use_jit)
         self.n_engine_builds = 0
-        # captures of the engines built before the current one
-        self._old_captures = (0, 0.0)
 
     def add_constructor(self, ctor_cls, **kwargs):
         """GetProblemConstructor analogue (solver.hxx:111-118)."""
         c = ctor_cls(self.graph, **kwargs)
         self.constructors.append(c)
         return c
-
-    @property
-    def n_captures(self) -> int:
-        """Graphs captured (direct first calls on the CPU) by every engine
-        this solver built and by its aux passes."""
-        cur = self.engine.jit.stats()["captures"] if self.engine is not None else 0
-        return self._old_captures[0] + cur + self.aux.graph_stats()["captures"]
-
-    @property
-    def capture_seconds(self) -> float:
-        """Warm-up and capture seconds of those graphs."""
-        cur = self.engine.jit.stats()["capture_s"] if self.engine is not None else 0.0
-        return self._old_captures[1] + cur + self.aux.graph_stats()["capture_s"]
 
     # ------------------------------------------------------------------
     @tracing.traced("lpmp.solver.build_engine")
@@ -124,9 +109,6 @@ class Solver:
                              device=self.device, dtype=self.dtype, use_jit=self.use_jit)
         self.n_engine_builds += 1
         if old is not None:
-            st = old.jit.stats()
-            self._old_captures = (self._old_captures[0] + st["captures"],
-                                  self._old_captures[1] + st["capture_s"])
             # carry reparametrized duals over: old rows are a prefix of the
             # new blocks and old padded lanes stay padded.  The new blocks
             # are fresh uploads, so writing into them leaves the old state

@@ -16,7 +16,10 @@ Tracing is off by default; ``enable(True)`` turns it on for the process.
 - **Counters** are always on and cost an addition each: ``captures`` and
   ``capture_s`` (the warm-up and capture seconds of every CUDA graph,
   ``capture.Graphed``), ``syncs`` and ``syncs_by_site`` (every wait of the
-  host for the device, ``fetch``).  ``counters()`` returns a copy.
+  host for the device, ``fetch``), and ``launches`` (the launches of each
+  hand-written kernel wrapper of ``ops.grid_kernels``, ``launch``; a CUDA
+  graph's replay adds the launches its capture recorded, ``recording``).
+  ``counters()`` returns a copy.
 - **Syncs.**  ``fetch(site, t, as_)`` is the port's one way to wait for the
   device on its main paths: it brings ``t`` to the host as a ``float``, a
   ``bool`` or a numpy array, counts the wait under ``site`` and, traced, is
@@ -26,6 +29,7 @@ Tracing is off by default; ``enable(True)`` turns it on for the process.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 
@@ -36,6 +40,8 @@ _enabled = False
 _OFF = contextlib.nullcontext()
 _counts: dict = {"captures": 0, "capture_s": 0.0, "syncs": 0}
 _syncs_by_site: dict = {}
+_launches: collections.Counter = collections.Counter()
+_launch_sink: collections.Counter = _launches
 
 
 def enable(on: bool) -> None:
@@ -70,10 +76,32 @@ def add(counter: str, value=1) -> None:
     _counts[counter] += value
 
 
+def launch(counts: dict) -> None:
+    """Count kernel launches, {wrapper name: launches}: a wrapper's own, or
+    those a CUDA graph's replay runs (what its capture recorded)."""
+    _launch_sink.update(counts)
+
+
+@contextlib.contextmanager
+def recording(into: collections.Counter):
+    """Inside the block, launches count into ``into`` and not into the
+    counters: a capture records launches that only its replays run.  The
+    sink is one per process: enter it from one thread at a time."""
+    global _launch_sink
+    outer, _launch_sink = _launch_sink, into
+    try:
+        yield
+    finally:
+        _launch_sink = outer
+
+
 def counters() -> dict:
     """A copy of the counters: {"captures", "capture_s", "syncs",
-    "syncs_by_site": {site: syncs}}."""
-    return {**_counts, "syncs_by_site": dict(_syncs_by_site)}
+    "syncs_by_site": {site: syncs}, "launches": Counter({wrapper name:
+    launches})}.  Launches are read as differences:
+    ``counters()["launches"] - before`` holds the wrappers that launched
+    since ``before`` was read."""
+    return {**_counts, "syncs_by_site": dict(_syncs_by_site), "launches": _launches.copy()}
 
 
 def fetch(site: str, t: torch.Tensor, as_: type = float):

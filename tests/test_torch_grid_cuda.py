@@ -5,12 +5,14 @@ reason.  On a machine with an H100 run ``python -m pytest -m gpu
 tests/test_torch_grid_cuda.py`` or ``python3 chip_smoke.py``, whose kernel
 phase is the same shared helper (lp_mp_tpu_torch.kernel_check).
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from lp_mp_tpu_torch import GridPottsModel, random_grid
+from lp_mp_tpu_torch import GridPottsModel, random_grid, tracing
 from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, COST_RTOL, ROUND_GEOMETRIES, ROUND_MODES,
                                           RTOL, WIDE_LABEL_SHAPES, check_grid_kernels,
                                           check_phase_v1, check_replays, check_round_primal,
@@ -28,15 +30,14 @@ def cuda():
 
 
 def test_kernels_match_plain_versions(cuda):
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     worst = check_grid_kernels(cuda, log=lambda line: None)
     assert set(worst) == {"phase_update", "round_update"}
     # per shape: two inputs, each through six phase launches and two round
     # launches at each geometry
-    expect = dict.fromkeys(gk.launch_counts(), 0)
-    expect.update(phase_update=12 * len(CHECK_SHAPES),
-                  round_update=4 * len(ROUND_GEOMETRIES) * len(CHECK_SHAPES))
-    assert gk.launch_counts() == expect
+    assert tracing.counters()["launches"] - before == Counter(
+        phase_update=12 * len(CHECK_SHAPES),
+        round_update=4 * len(ROUND_GEOMETRIES) * len(CHECK_SHAPES))
 
 
 def test_cuda_tensors_never_fall_back(cuda):
@@ -52,10 +53,10 @@ def test_cuda_tensors_never_fall_back(cuda):
 
 
 def test_phase_kernels_take_more_labels_than_the_round_kernels(cuda):
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     check_grid_kernels(cuda, shapes=WIDE_LABEL_SHAPES, log=lambda line: None)
     check_phase_v1(cuda, shapes=WIDE_LABEL_SHAPES, log=lambda line: None)
-    counts = gk.launch_counts()
+    counts = tracing.counters()["launches"] - before
     # per shape: two inputs through six phases, no round (L > ROUND_MAX_LABELS), and six v1 phases
     assert counts["phase_update"] == 12 * len(WIDE_LABEL_SHAPES)
     assert counts["phase_update_v1"] == 6 * len(WIDE_LABEL_SHAPES)
@@ -93,9 +94,9 @@ def test_kernel_run_fast_matches_the_plain_path(cuda, mode):
 def test_rounding_kernels_match_plain_versions(cuda):
     """Every check shape, the tuples of every mode, random and tied states:
     state bit-equal, labels equal, cost within COST_RTOL."""
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     assert check_round_primal(cuda, log=lambda line: None) <= COST_RTOL
-    counts = gk.launch_counts()
+    counts = tracing.counters()["launches"] - before
     roundings = 2 * len(ROUND_MODES) * len(CHECK_SHAPES)
     assert counts["round_phase_update"] == 4 * roundings and counts["primal_cost"] == 2 * roundings
 
@@ -122,14 +123,14 @@ def test_round_primal_kernels_match_the_plain_rounding(cuda, mode, ties, use_jit
     m = rounding_model(cuda, ties, use_jit=use_jit)
     before = {k: v.clone() for k, v in m.state.items()}
     ref, (x_ref, ub_ref) = m._round_impl(before, m._mode_params(mode))
-    gk.reset_launch_counts()
+    launched = tracing.counters()["launches"]
     x, ub = m.round_primal(mode)
     torch.cuda.synchronize()
     for k in gk.STATE_KEYS:
         assert torch.equal(m.state[k], ref[k]), k
     assert (x == x_ref.cpu().numpy()).all()
     assert abs(ub - float(ub_ref)) <= COST_RTOL * abs(float(ub_ref))
-    assert gk.launch_counts()["round_phase_update"] >= 4
+    assert (tracing.counters()["launches"] - launched)["round_phase_update"] >= 4
 
 
 def test_round_primal_replays_give_the_same_cost(cuda):
@@ -139,14 +140,14 @@ def test_round_primal_replays_give_the_same_cost(cuda):
     m = rounding_model(cuda, False)
     start = {k: v.clone() for k, v in m.state.items()}
     m.round_primal()                      # capture, with its warm-up
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     got = []
     for _ in range(2):
         m.load_state(start)
         got.append(m.round_primal())
     (x1, ub1), (x2, ub2) = got
     assert (x1 == x2).all() and ub1 == ub2
-    counts = gk.launch_counts()
+    counts = tracing.counters()["launches"] - before
     assert counts["round_phase_update"] == 8 and counts["primal_cost"] == 4
     assert sum(counts.values()) == 12
 
@@ -154,9 +155,9 @@ def test_round_primal_replays_give_the_same_cost(cuda):
 def test_float64_model_rounds_on_the_plain_ops(cuda):
     """A float64 model on the card keeps the plain rounding: no kernel launches."""
     m = rounding_model(cuda, False, dtype=torch.float64)
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     x, ub = m.round_primal()
-    assert set(gk.launch_counts().values()) == {0}
+    assert tracing.counters()["launches"] == before
     assert x.shape == (50, 70) and x.dtype == np.int32 and np.isfinite(ub)
 
 
@@ -166,11 +167,11 @@ def test_round_primal_matches_the_jax_package(cuda):
     on the CPU, ``chip_smoke.JAX_ROUND``, which
     tests/test_torch_model_constants.py recomputes): the labels equal, the
     cost within ``ROUND_UB_RTOL`` (the JAX package sums it in float32)."""
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     x, ub = chip_smoke.jax_round_case(cuda)
     assert chip_smoke.labels_digest(x) == chip_smoke.JAX_ROUND["digest"]
     assert ub == pytest.approx(chip_smoke.JAX_ROUND["ub"], rel=chip_smoke.ROUND_UB_RTOL)
-    assert gk.launch_counts()["round_phase_update"] >= 4
+    assert (tracing.counters()["launches"] - before)["round_phase_update"] >= 4
 
 
 def test_primal_cost_of_a_label_out_of_range_is_nan(cuda):

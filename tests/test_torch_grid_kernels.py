@@ -18,6 +18,7 @@ import torch
 from lp_mp_tpu.models.grid_potts import GridPottsModel as JaxGrid
 from lp_mp_tpu.ops.pallas_grid import phase_update as jax_phase_update_v1
 from lp_mp_tpu.ops.pallas_grid import phase_update_v2, round_update_v2
+from lp_mp_tpu_torch import tracing
 from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, PHASE_PARAMS, ROUND_GEOMETRIES,
                                           random_dense_state)
 from lp_mp_tpu_torch.ops import _cuda_build
@@ -96,7 +97,7 @@ def test_round_update_ref_matches_pallas(H, W, L, n_rounds):
 
 @pytest.mark.parametrize("H,W,L", SHAPES)
 def test_wrappers_on_cpu_run_the_plain_version(H, W, L):
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     state, hc, vc = random_dense_state(H, W, L, seed=1)
     for params in PHASE_PARAMS:
         out, ref = gk.phase_update(state, hc, vc, *params), gk.phase_update_ref(state, hc, vc, *params)
@@ -106,7 +107,7 @@ def test_wrappers_on_cpu_run_the_plain_version(H, W, L):
         out, ref = gk.round_update(state, hc, vc, n_rounds), gk.round_update_ref(state, hc, vc, n_rounds)
         for k in gk.STATE_KEYS:
             assert torch.equal(out[k], ref[k])
-    assert set(gk.launch_counts().values()) == {0}
+    assert tracing.counters()["launches"] == before
 
 
 def test_wrappers_refuse_what_no_route_takes():
@@ -253,7 +254,7 @@ def test_rounding_wrappers_match_the_plain_rounding(H, W, L, mode, ties, dtype):
     m = GridPottsModel(np.moveaxis(state["u"].numpy(), 0, -1), hc.numpy(), vc.numpy(),
                        device="cpu", dtype=dtype, use_jit=False).load_state(state)
     ref, (x, ub) = m._round_impl({k: v.clone() for k, v in state.items()}, m._mode_params(mode))
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     labels = torch.zeros((H, W), dtype=torch.int32)
     s = state
     for p in phase_tuples(mode):
@@ -264,7 +265,7 @@ def test_rounding_wrappers_match_the_plain_rounding(H, W, L, mode, ties, dtype):
     assert torch.equal(labels.long(), x)
     assert cost.dtype == torch.float64 and float(cost) == float(ub)
     assert float(ub) == float(seven_sums(ref, m.hc, m.vc, x))
-    assert set(gk.launch_counts().values()) == {0}
+    assert tracing.counters()["launches"] == before
 
 
 def test_rounding_wrappers_refuse_what_no_route_takes():

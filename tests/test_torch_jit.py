@@ -36,7 +36,7 @@ from lp_mp_tpu_torch import (ChainDecomposition, Direction, DiscreteTomographyCo
                              MulticutConstructor, ShardedEngine, ShardedGridPotts, Solver,
                              StandardTighteningVisitor, StandardVisitor, random_grid, restore,
                              snapshot)
-from lp_mp_tpu_torch import capture
+from lp_mp_tpu_torch import capture, tracing
 from lp_mp_tpu_torch.convert import engine_state_to_numpy
 from lp_mp_tpu_torch.factors.simplex import UNARY_SIMPLEX
 from lp_mp_tpu_torch.messages.vector_equality import VECTOR_EQUALITY
@@ -447,7 +447,7 @@ def test_solver_matches_jitted_jax_mrf_and_multicut():
                           tighten_constraints_max=20, primal_computation_interval=4))
     sj, sp = jax_and_port(tight, multicut)
     assert_bounds(sj, sp)
-    assert sp.n_captures > 0 and len(sp.graph.factors) > 65       # triplets were added
+    assert sp.engine.jit.stats()["captures"] > 0 and len(sp.graph.factors) > 65   # triplets added
 
 
 def test_solver_matches_jitted_jax_qap_and_tomography():
@@ -529,7 +529,7 @@ def test_solver_rebuild_and_fold_into_under_jit():
         off.engine.lower_bound() + off.aux.lower_bound()
     old = on.engine
     before = engine_state_to_numpy(old.state)
-    captures = on.n_captures
+    captures = tracing.counters()["captures"]
     for s in (on, off):
         s.build_engine()                                    # folds the absorbed triplets
         assert not bool(s.aux) and s.n_engine_builds == 2
@@ -539,8 +539,10 @@ def test_solver_rebuild_and_fold_into_under_jit():
     for s in (on, off):
         run_engine(s.engine, 3)
     assert states_equal(on.engine.state, off.engine.state)
-    assert on.n_captures > captures and on.capture_seconds == 0.0   # no CUDA capture here
-    assert off.n_captures == 0
+    st = on.engine.jit.stats()
+    assert st["captures"] > 0 and st["capture_s"] == 0.0           # direct first calls
+    assert tracing.counters()["captures"] == captures               # no CUDA capture here
+    assert off.engine.jit.stats()["captures"] == 0
 
 
 def test_tree_solver_under_jit():

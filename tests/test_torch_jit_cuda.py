@@ -16,9 +16,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from lp_mp_tpu_torch import (Direction, Engine, FactorGraph, GridPottsModel, MrfConstructor,
                              ShardedGridPotts, random_grid)
+from lp_mp_tpu_torch import tracing
 from lp_mp_tpu_torch.capture import Graphs
 from lp_mp_tpu_torch.models.grid_potts import grid_potts_edges
-from lp_mp_tpu_torch.ops.grid_kernels import launch_counts, reset_launch_counts
 
 pytestmark = pytest.mark.gpu
 
@@ -81,20 +81,23 @@ def test_host_sync_under_capture_raises(cuda):
 def test_launch_counts_through_replays(cuda):
     u, hc, vc = random_grid(40, 50, 4, seed=2)
     m = GridPottsModel(u, hc, vc, device=cuda)
-    reset_launch_counts()
+    before = tracing.counters()["launches"]
     m.run_fast(4, kernel="cuda")             # warm-up (3 launches) and one replay (3)
-    assert launch_counts()["phase_update"] == 2 and launch_counts()["round_update"] == 4
+    counts = tracing.counters()["launches"] - before
+    assert counts["phase_update"] == 2 and counts["round_update"] == 4
     m.run_fast(4, kernel="cuda")
-    assert launch_counts()["phase_update"] == 3 and launch_counts()["round_update"] == 6
+    counts = tracing.counters()["launches"] - before
+    assert counts["phase_update"] == 3 and counts["round_update"] == 6
     sm = ShardedGridPotts(u, hc, vc, devices=[cuda] * 2)
-    reset_launch_counts()
+    before = tracing.counters()["launches"]
     for _ in range(2):
         sm.run_fast(4)
+    counts = tracing.counters()["launches"] - before
     # one graph per sweep and window set, each warmed up once: the prologue
     # from either set (each call flips the set: 3 sweeps), the 2-round sweep
     # from either set
-    assert launch_counts()["phase_update_sharded"] == 2 * (2 + 2)
-    assert launch_counts()["round_update_sharded"] == 2 * (4 + 2)
+    assert counts["phase_update_sharded"] == 2 * (2 + 2)
+    assert counts["round_update_sharded"] == 2 * (4 + 2)
     ref = GridPottsModel(u, hc, vc, device=cuda, use_jit=False)
     ref.run_fast(4, kernel="cuda").run_fast(4, kernel="cuda")
     for k, v in sm.dense_state().items():

@@ -10,7 +10,7 @@ tuple from captured functions (direct calls on the CPU).
 import pytest
 import torch
 
-from lp_mp_tpu_torch import kernel_check as kc
+from lp_mp_tpu_torch import kernel_check as kc, tracing
 from lp_mp_tpu_torch.ops import grid_kernels as gk
 
 
@@ -44,7 +44,7 @@ def test_shapes_cover_the_phase_blocks():
 @pytest.mark.parametrize("shapes", [kc.WIDE_LABEL_SHAPES, ((10, 63, 4), (9, 65, 3))],
                          ids=["wide labels", "around a block"])
 def test_checks_run_every_kernel_wrapper(no_sync, shapes):
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     logs = []
     worst = kc.check_grid_kernels("cpu", shapes=shapes, log=logs.append)
     assert worst == {"phase_update": 0.0, "round_update": 0.0}
@@ -57,7 +57,7 @@ def test_checks_run_every_kernel_wrapper(no_sync, shapes):
         assert not rounds           # the round kernels refuse these label counts
     else:
         assert len(rounds) == 2 * 2 * len(kc.ROUND_GEOMETRIES) * len(shapes)
-    assert set(gk.launch_counts().values()) == {0}     # the CPU never launches
+    assert tracing.counters()["launches"] == before     # the CPU never launches
 
 
 def test_replays_cover_every_phase_tuple(no_sync):
@@ -79,12 +79,12 @@ def test_round_primal_check_covers_every_mode(no_sync, shapes):
     versions in every mode, on random and on tied states, one log line per
     shape; on the CPU both sides are the plain version, so the cost's error
     is 0 and nothing launches."""
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     logs = []
     assert kc.check_round_primal("cpu", shapes=shapes, log=logs.append) == 0.0
     assert len(logs) == len(shapes)
     assert all(f"{2 * len(kc.ROUND_MODES)} roundings" in line for line in logs)
-    assert set(gk.launch_counts().values()) == {0}
+    assert tracing.counters()["launches"] == before
 
 
 def test_round_primal_check_catches_a_wrong_label(no_sync, monkeypatch):
@@ -103,8 +103,8 @@ def test_round_primal_check_catches_a_wrong_label(no_sync, monkeypatch):
 
 
 def test_phase_bench_imports_no_jax():
-    """The timing module ``chip_smoke.py`` imports stays free of JAX, and
-    without a card its command exits non-zero before timing anything."""
+    """The kernel timer stays free of JAX, and without a card its command
+    exits non-zero before timing anything."""
     import subprocess
     import sys
     code = ("import sys, lp_mp_tpu_torch.phase_bench as pb; "
@@ -181,7 +181,7 @@ def test_round_geometries_take_the_plain_version_on_the_cpu(tile, n_rounds):
     geometry on the card; on the CPU they give the plain versions, which
     every geometry equals, and launch nothing."""
     from lp_mp_tpu_torch.parallel.grid import RowShards
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     H, W, L = 13, 10, 3
     state, hc, vc = kc.random_dense_state(H, W, L, seed=2)
     out = kc.round_at(state, hc, vc, n_rounds, tile)
@@ -195,7 +195,7 @@ def test_round_geometries_take_the_plain_version_on_the_cpu(tile, n_rounds):
                 n_rounds)
         got, want = kc.round_sharded_at(*args, tile), gk.round_update_sharded_ref(*args)
         assert all(torch.equal(got[a], want[a]) for a in gk.STATE_KEYS)
-    assert set(gk.launch_counts().values()) == {0}
+    assert tracing.counters()["launches"] == before
 
 
 @pytest.mark.parametrize("key", ["u", "hm1", "hm2", "vm1", "vm2"])

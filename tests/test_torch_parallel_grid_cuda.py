@@ -9,7 +9,7 @@ chip_smoke.py``, whose sharded kernel phase is the same shared helper
 import pytest
 import torch
 
-from lp_mp_tpu_torch import GridPottsModel, ShardedGridPotts, random_grid
+from lp_mp_tpu_torch import GridPottsModel, ShardedGridPotts, random_grid, tracing
 from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, PHASE_PARAMS, ROUND_GEOMETRIES, RTOL,
                                           SHARD_COUNTS, WIDE_LABEL_SHAPES, check_phase_v1,
                                           check_sharded_grid_kernels, random_dense_state)
@@ -28,32 +28,33 @@ def cuda():
 
 
 def test_sharded_kernels_match_plain_versions(cuda):
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     worst = check_sharded_grid_kernels(cuda, shapes=SMALL_SHAPES, log=lambda line: None)
     assert set(worst) == {"phase_update_sharded", "round_update_sharded"}
     shards = sum(SHARD_COUNTS)
     # per shape: two inputs, each through six phases and two rounds at each
     # geometry on every shard
-    counts = gk.launch_counts()
+    counts = tracing.counters()["launches"] - before
     assert counts["phase_update_sharded"] == 2 * 6 * shards * len(SMALL_SHAPES)
     assert counts["round_update_sharded"] == (2 * 2 * len(ROUND_GEOMETRIES) * shards
                                               * len(SMALL_SHAPES))
 
 
 def test_phase_v1_matches_plain_version(cuda):
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     check_phase_v1(cuda, shapes=SMALL_SHAPES, log=lambda line: None)
-    assert gk.launch_counts()["phase_update_v1"] == len(PHASE_PARAMS) * len(SMALL_SHAPES)
+    counts = tracing.counters()["launches"] - before
+    assert counts["phase_update_v1"] == len(PHASE_PARAMS) * len(SMALL_SHAPES)
 
 
 @pytest.mark.parametrize("mode", ["anisotropic", "uniform", "damped_uniform"])
 def test_four_shards_match_dense_kernel_path(cuda, mode):
     u, hc, vc = random_grid(64, 64, 4, seed=5)
     dense = GridPottsModel(u, hc, vc, device=cuda, dtype=torch.float32).run_fast(9, mode)
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     sharded = ShardedGridPotts(u, hc, vc, devices=[cuda] * 4,
                                dtype=torch.float32).run_fast(9, mode)
-    counts = gk.launch_counts()
+    counts = tracing.counters()["launches"] - before
     # each sweep from one window set into the other is a captured graph
     # (use_jit) whose warm-up launches once: per shard, the schedule's
     # launches and one more per graph (anisotropic: the prologue, the
@@ -89,9 +90,9 @@ def test_sharded_cuda_tensors_never_fall_back(cuda):
 
 
 def test_sharded_phase_kernel_takes_more_labels_than_the_round_kernel(cuda):
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     check_sharded_grid_kernels(cuda, shapes=WIDE_LABEL_SHAPES, log=lambda line: None)
-    counts = gk.launch_counts()
+    counts = tracing.counters()["launches"] - before
     # per shape: two inputs through six phases on every shard, no round
     assert counts["phase_update_sharded"] == 2 * 6 * sum(SHARD_COUNTS) * len(WIDE_LABEL_SHAPES)
     assert counts["round_update_sharded"] == 0

@@ -12,6 +12,7 @@ against these plain versions on the card (test_torch_parallel_grid_cuda.py).
 import pytest
 import torch
 
+from lp_mp_tpu_torch import tracing
 from lp_mp_tpu_torch.kernel_check import PHASE_PARAMS, random_dense_state
 from lp_mp_tpu_torch.ops import grid_kernels as gk
 from lp_mp_tpu_torch.parallel.grid import RowShards
@@ -73,7 +74,7 @@ def test_inert_rows_stay_zero():
 
 
 def test_wrappers_on_cpu_run_the_plain_version():
-    gk.reset_launch_counts()
+    before = tracing.counters()["launches"]
     _, _, _, _, args = sharded_inputs(13, 9, 2, 3, seed=5, ties=True)
     for a in args:
         for params in PHASE_PARAMS:
@@ -83,7 +84,7 @@ def test_wrappers_on_cpu_run_the_plain_version():
         for nr in (1, 2):
             out, ref = gk.round_update_sharded(*a, nr), gk.round_update_sharded_ref(*a, nr)
             assert all(torch.equal(out[k], ref[k]) for k in gk.STATE_KEYS)
-    assert set(gk.launch_counts().values()) == {0}
+    assert tracing.counters()["launches"] == before
 
 
 def test_sharded_wrappers_refuse_what_no_route_takes():

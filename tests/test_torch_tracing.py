@@ -4,8 +4,13 @@ Off, tracing leaves nothing in a profiler's trace and changes no result;
 on, the spans of the grid model, the solver and the engine appear under
 ``torch.profiler`` strictly nested, each sync inside the call that waits;
 the sync counter counts exactly the waits of a known sequence of calls,
-with tracing on or off.
+with tracing on or off; ``capture``, which counts launches through
+``tracing``, loads no kernel module.
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +20,8 @@ from lp_mp_tpu_torch import (GridPottsModel, MrfConstructor, Solver, StandardTig
                              StandardVisitor, random_grid, tracing)
 from lp_mp_tpu_torch.aux_tighten import AuxPasses
 from lp_mp_tpu_torch.engine import Engine
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -205,4 +212,21 @@ def test_counters_are_a_copy():
     c["syncs_by_site"]["x"] = 1
     d = tracing.counters()
     assert d["syncs"] == c["syncs"] - 100 and "x" not in d["syncs_by_site"]
-    assert set(d) == {"captures", "capture_s", "syncs", "syncs_by_site"}
+    assert set(d) == {"captures", "capture_s", "syncs", "syncs_by_site", "launches"}
+
+
+def test_captured_execution_loads_no_kernel_module():
+    """``capture`` counts a graph's launches through ``tracing``: importing
+    it loads nothing of ``ops``.  The package's ``__init__`` imports every
+    module, so ``capture`` is loaded under an empty package of the same
+    path."""
+    code = ("import sys, types; "
+            "pkg = types.ModuleType('lp_mp_tpu_torch'); pkg.__path__ = ['lp_mp_tpu_torch']; "
+            "sys.modules['lp_mp_tpu_torch'] = pkg; "
+            "import lp_mp_tpu_torch.capture; "
+            "assert 'lp_mp_tpu_torch.tracing' in sys.modules; "
+            "ops = [m for m in sys.modules if m.startswith('lp_mp_tpu_torch.ops')]; "
+            "assert not ops, ops")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
