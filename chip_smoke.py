@@ -15,11 +15,13 @@ rates are the benchmark's (benchmark/run.py), its kernels' times
   sharded (1-4 shards) phase kernels, also at more labels than the round
   kernels take; the round kernels, bit-equal at each geometry; the rounding
   kernels in every mode (state bit-equal, labels equal, cost within
-  COST_RTOL); and each kernel replayed from a CUDA graph.
+  COST_RTOL); the bound kernel (within COST_RTOL, bit-equal across launches
+  and replays, NaN in, NaN out); and each kernel replayed from a CUDA graph.
 - Main paths on the 1000x1000, L=4 Potts grid, with the kernel launches
   (``tracing.counters()["launches"]``) held to the schedule's plus each
   graph's warm-up: GridPottsModel.run_fast(kernel="cuda") for 1500
-  iterations against the JAX package's bound and the plain path;
+  iterations against the JAX package's bound and the plain path, its
+  bounds through the bound kernel (against the plain bound on its state);
   round_primal's kernels against the plain rounding and the JAX package's
   (JAX_ROUND); ShardedGridPotts at 1 and 4 shards on cuda:0 against the
   dense path; the uniform schedule through phase_update_v1.
@@ -72,8 +74,8 @@ from lp_mp_tpu_torch import (ChainDecomposition, Direction, DiscreteTomographyCo
 from lp_mp_tpu_torch.capture import flatten
 from lp_mp_tpu_torch.engine_pull import pull_stats
 from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, COST_RTOL, ROUND_GEOMETRIES, RTOL,
-                                          WIDE_LABEL_SHAPES, check_grid_kernels, check_phase_v1,
-                                          check_replays, check_round_primal,
+                                          WIDE_LABEL_SHAPES, check_grid_kernels, check_lower_bound,
+                                          check_phase_v1, check_replays, check_round_primal,
                                           check_sharded_grid_kernels)
 from lp_mp_tpu_torch.models.grid_potts import grid_potts_edges
 from lp_mp_tpu_torch.ops import _cuda_build
@@ -102,7 +104,8 @@ REPLACES = {"round_update": "lp_mp_tpu/ops/pallas_grid.py:303",
             "phase_update_sharded": "lp_mp_tpu/ops/pallas_grid.py:443",
             "phase_update_v1": "lp_mp_tpu/ops/pallas_grid.py:72",
             "round_phase_update": "none (jnp ops, lp_mp_tpu/models/grid_potts.py:297-317)",
-            "primal_cost": "none (jnp ops, lp_mp_tpu/models/grid_potts.py:310-317)"}
+            "primal_cost": "none (jnp ops, lp_mp_tpu/models/grid_potts.py:310-317)",
+            "lower_bound": "none (jnp ops, lp_mp_tpu/models/grid_potts.py:291-295)"}
 # launches of one GridPottsModel.round_primal on a float32 model on the card
 ROUND_LAUNCHES = {"round_phase_update": 4, "primal_cost": 2}
 # the generic engine path: bench.py's chain (bench.py:334-394) and its exact
@@ -209,7 +212,7 @@ def phase_build() -> None:
 
 def phase_kernel_checks() -> dict:
     """Every kernel against its plain version.  Returns the worst error of
-    each wrapper: absolute, the cost's relative for primal_cost."""
+    each wrapper: absolute, relative for primal_cost and lower_bound."""
     shapes = CHECK_SHAPES + WIDE_LABEL_SHAPES
     worst = check_grid_kernels("cuda", shapes=shapes, log=print)
     print(f"check: all launches within 1e-5*(1+max|x|), the round kernel bit-equal at each "
@@ -222,6 +225,10 @@ def phase_kernel_checks() -> dict:
     worst["round_phase_update"] = 0.0       # bit-equal, or check_round_primal raised
     print(f"check: the rounding kernels in every mode: state bit-equal, labels equal, cost "
           f"within {COST_RTOL} relative; max rel err of the cost {worst['primal_cost']:.1e}")
+    worst["lower_bound"] = check_lower_bound("cuda", shapes=shapes, log=print)
+    print(f"check: the bound kernel within {COST_RTOL} relative, bit-equal across launches and "
+          f"replays, NaN in each state array propagating; max rel err "
+          f"{worst['lower_bound']:.1e}")
     for k, err in check_replays("cuda", log=print).items():
         worst[k] = max(worst.get(k, 0.0), err)
     print(f"check: every kernel replayed in a CUDA graph within 1e-5*(1+max|x|) (the rounding "
@@ -259,8 +266,8 @@ def phase_main_path() -> dict:
     bound and its rounded primal."""
     u, hc, vc = random_grid(H, W, L, seed=SEED)
     m = GridPottsModel(u, hc, vc, device="cuda", dtype=torch.float32)
-    prev = m.lower_bound()
     before = launches()
+    prev = m.lower_bound()
     for chunk in range(1, CHUNKS + 1):
         m.run_fast(CHUNK_ITERS, kernel="cuda")
         lb = m.lower_bound()
@@ -270,12 +277,20 @@ def phase_main_path() -> dict:
         prev = lb
     counts = launches() - before
     per_call = {"phase_update": 1, "round_update": CHUNK_ITERS // 2 + CHUNK_ITERS % 2}
-    expect = with_warmups({k: CHUNKS * v for k, v in per_call.items()}, m.jit.records)
+    schedule = {k: CHUNKS * v for k, v in per_call.items()}
+    schedule["lower_bound"] = 2 * (CHUNKS + 1)
+    expect = with_warmups(schedule, m.jit.records)
     print(f"main: launches {dict(counts)}, schedule implies {dict(expect)} ({CHUNKS} replays of "
-          f"the captured run_fast({CHUNK_ITERS}) and its warm-up)")
+          f"the captured run_fast({CHUNK_ITERS}), {CHUNKS + 1} of the captured bound, and their "
+          f"warm-ups)")
     if counts != expect:
         fail(f"launch counts {dict(counts)} differ from the schedule's {dict(expect)}")
     lb_cuda = prev
+    lb_plain = float(m._lower_bound_impl(m.state))
+    print(f"main: bound kernel {lb_cuda!r}, plain bound of the same state {lb_plain!r}, rel diff "
+          f"{rel(lb_cuda, lb_plain):.1e} (limit {COST_RTOL})")
+    if not rel(lb_cuda, lb_plain) <= COST_RTOL:
+        fail(f"the bound kernel's {lb_cuda} and the plain bound's {lb_plain} disagree")
     print(f"main: bound {lb_cuda:.6f}, JAX package {JAX_TARGET_LB}, "
           f"rel diff {rel(lb_cuda, JAX_TARGET_LB):.3e} (limit 1e-4)")
     if not rel(lb_cuda, JAX_TARGET_LB) <= 1e-4:
@@ -610,8 +625,8 @@ def phase_engine_grid() -> tuple:
     m.run_fast(ENGINE_GRID_PASSES, kernel="cuda")
     lb_k = m.lower_bound()
     counts = launches() - before
-    expect = with_warmups({"phase_update": 1, "round_update": ENGINE_GRID_PASSES // 2},
-                          m.jit.records)
+    expect = with_warmups({"phase_update": 1, "round_update": ENGINE_GRID_PASSES // 2,
+                           "lower_bound": 2}, m.jit.records)
     if counts != expect:
         fail(f"GridPottsModel kernel path launches {dict(counts)} differ from the schedule's "
              f"{dict(expect)}")

@@ -12,6 +12,10 @@
 //   grid_round_primal_kernel     a phase that also writes labels (round_phase_update)
 //   grid_primal_cost_kernel,     the labelling's cost in float64 (primal_cost)
 //   grid_primal_sum_kernel
+// and, replacing no Pallas kernel either (the JAX bound is jnp ops,
+// lp_mp_tpu/models/grid_potts.py, lower_bound):
+//   grid_bound_kernel            the dual bound in float64 (lower_bound), its
+//                                partials folded by grid_primal_sum_kernel
 //
 // Dense layout, float32, labels outermost (see ops/grid_kernels.py):
 //   u [L,H,W]; hm1/hm2 [L,H,W-1], the two slots of h-edge (r,c)-(r,c+1),
@@ -197,6 +201,33 @@
 // 4-byte value picked out of a 32-byte sector of its label plane, so up to
 // the five arrays' 80 MB in sectors: 32-92 MB, 10-27 us at 3.35 TB/s; 39 us
 // for both kernels on the H100, so it moves its sectors at about 2.4 TB/s.
+// grid_bound_kernel: the dual bound, GridPottsModel._lower_bound_impl's
+// (ops/grid_kernels.lower_bound_ref): per cell the min over the labels of u,
+// per edge the Potts pair-min of its two slots and its cost, each term
+// computed in float32 operation for operation as the plain ops do and summed
+// in float64.  What bounds it: bytes.  It must read the state and the costs
+// once, 87.93 MB at 1000x1000, L=4 (16.00 MB of u, 4 x 15.984 of slots, 2 x
+// 3.996 of costs): 26.2 us at 3.35 TB/s, with a few flops per value.  The
+// plain ops took about 460 us: some 30 launches, each writing or reading a
+// 4-16 MB intermediate, about 1 GB in all.  This design reads each array
+// once, in its own flat index space (cells, horizontal edges, vertical
+// edges), with no intermediate: a thread takes a quad of each space at the
+// same index, and for L <= 4 (the label count a template parameter, as in
+// K2) issues every load of its three quads before the first use, so one
+// round trip to memory serves a step; the planes move as 16-byte loads where
+// a space's length is a multiple of 4 and its arrays 16-byte aligned (all
+// three at 1000x1000), else as 4-byte loads; other L take one label at a
+// time.  The per-thread float64 sums go to one partial per block through
+// block_sum, and grid_primal_sum_kernel folds the partials, both in a fixed
+// order and with no atomics: a state gives the same bound bit for bit on
+// every replay, within 1e-12 of the plain float64 sums, which add the same
+// float32 terms in another order.  NaN propagates as torch.amin does
+// (nan_min, never fminf).  On the H100 (phase_bench.py, graph replay) both
+// kernels take 62-63 us a bound, 42 % of the bound, against 480 us for the
+// plain ops.  At L=4 the kernel takes 154 registers (ptxas), so an SM holds
+// one block of 256 threads and the 977 blocks run in 7.4 waves; each wave's
+// round trip to memory and block reduction, with nothing else on the SM, is
+// the likely remaining cost (not measured).
 // Rounding: the products that feed an add go through __fmul_rn, which the
 // compiler never contracts into an FMA, so both kernels round like the plain
 // torch ops, one IEEE operation at a time.
@@ -580,6 +611,166 @@ __global__ void __launch_bounds__(kCostThreads)
   for (int i = threadIdx.x; i < n; i += kCostThreads) acc += partials[i];
   const double s = block_sum(acc);
   if (threadIdx.x == 0) *out = s;
+}
+
+// ---------------------------------------------------------------------------
+// the dual bound
+// ---------------------------------------------------------------------------
+constexpr float kFltMax = 3.40282347e38f;  // torch.finfo(float32).max: two_min's mask
+
+// min(a, b) that is NaN where either is, as torch.amin and torch.minimum
+__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || isnan(a)) ? a : b; }
+
+// ops/reductions.two_min of one slot over the labels, in one pass: the min a,
+// the first label i that takes it, and s, the min over the other labels
+// starting from kFltMax (two_min masks label i with the dtype's max)
+struct TwoMin {
+  float a, s;
+  int i;
+};
+
+// _potts_min_pair's statistics of one edge: diag = min over l of m1 + m2, and
+// two_min of m1 and of m2
+struct PairStats {
+  float diag;
+  TwoMin t1, t2;
+};
+
+__device__ __forceinline__ void two_min_step(TwoMin& t, float v, int l) {
+  if (l == 0) {
+    t = {v, kFltMax, 0};
+  } else if (v < t.a) {
+    t.s = nan_min(t.s, t.a);
+    t.a = v;
+    t.i = l;
+  } else {
+    t.s = nan_min(t.s, v);
+  }
+}
+
+__device__ __forceinline__ void pair_step(PairStats& p, float x1, float x2, int l) {
+  const float d = x1 + x2;
+  p.diag = l == 0 ? d : nan_min(p.diag, d);
+  two_min_step(p.t1, x1, l);
+  two_min_step(p.t2, x2, l);
+}
+
+// min over (x1, x2) of m1[x1] + m2[x2] + cost * [x1 != x2], operation for
+// operation as _potts_min_pair: min(diag, off) with off = (i1 != i2 ? a1 + a2
+// : min(a1 + s2, s1 + a2)) + cost; diag alone for L == 1
+__device__ __forceinline__ float pair_min(const PairStats& p, float cost, int L) {
+  if (L == 1) return p.diag;
+  const float off = (p.t1.i != p.t2.i ? p.t1.a + p.t2.a
+                                      : nan_min(p.t1.a + p.t2.s, p.t1.s + p.t2.a)) + cost;
+  return nan_min(p.diag, off);
+}
+
+// Elements [i, i + 4) of a plane of n floats at p where `ok`: one 16-byte
+// load where `wide` (n a multiple of 4 and p 16-byte aligned, so i + 4 <= n),
+// else a 4-byte load of each element below n; zeros elsewhere (never summed).
+__device__ __forceinline__ void load_quad(const float* p, long i, long n, bool ok, bool wide,
+                                          float (&x)[4]) {
+  if (wide) {
+    const float4 v = ok ? __ldg(reinterpret_cast<const float4*>(p + i))
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = (ok && i + k < n) ? __ldg(p + i + k) : 0.0f;
+  }
+}
+
+// The three index spaces of the bound: cells (u), horizontal edges (hm1, hm2,
+// hc) and vertical edges (vm1, vm2, vc), each with its length and whether its
+// planes take 16-byte loads.
+struct BoundTerms {
+  const float *u, *m1[2], *m2[2], *c[2];  // [0]: horizontal edges, [1]: vertical
+  long n[3];                              // cells, horizontal edges, vertical edges
+  unsigned wide;                          // bit t: term t takes 16-byte loads
+};
+
+// The bound's float64 sum over one quad [i, i + 4) of each index space: per
+// cell the min over the labels of u, per edge pair_min, added in the order
+// cell, horizontal edge, vertical edge of each k.  With kL > 0 labels
+// (exactly L) every value of the quads is loaded before the first use; kL ==
+// 0 takes any L, one label at a time.
+template <int kL>
+__device__ __forceinline__ double bound_quad(const BoundTerms& b, long i, int L) {
+  bool ok[3], wide[3];
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    ok[t] = i < b.n[t];
+    wide[t] = (b.wide >> t) & 1;
+  }
+  float cmin[4];
+  PairStats st[2][4];
+  float cost[2][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) load_quad(b.c[e], i, b.n[1 + e], ok[1 + e], wide[1 + e], cost[e]);
+  auto step = [&](int l, const float (&x)[4], const float (&y1)[2][4], const float (&y2)[2][4]) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      cmin[k] = l == 0 ? x[k] : nan_min(cmin[k], x[k]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) pair_step(st[e][k], y1[e][k], y2[e][k], l);
+    }
+  };
+  if constexpr (kL > 0) {
+    float x[kL][4], y1[kL][2][4], y2[kL][2][4];
+#pragma unroll
+    for (int l = 0; l < kL; ++l) {
+      load_quad(b.u + l * b.n[0], i, b.n[0], ok[0], wide[0], x[l]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        load_quad(b.m1[e] + l * b.n[1 + e], i, b.n[1 + e], ok[1 + e], wide[1 + e], y1[l][e]);
+        load_quad(b.m2[e] + l * b.n[1 + e], i, b.n[1 + e], ok[1 + e], wide[1 + e], y2[l][e]);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kL; ++l) step(l, x[l], y1[l], y2[l]);
+  } else {
+    for (int l = 0; l < L; ++l) {
+      float x[4], y1[2][4], y2[2][4];
+      load_quad(b.u + l * b.n[0], i, b.n[0], ok[0], wide[0], x);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        load_quad(b.m1[e] + l * b.n[1 + e], i, b.n[1 + e], ok[1 + e], wide[1 + e], y1[e]);
+        load_quad(b.m2[e] + l * b.n[1 + e], i, b.n[1 + e], ok[1 + e], wide[1 + e], y2[e]);
+      }
+      step(l, x, y1, y2);
+    }
+  }
+  double acc = 0.0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (i + k < b.n[0]) acc += (double)cmin[k];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (i + k < b.n[1 + e]) acc += (double)pair_min(st[e][k], cost[e][k], L);
+    }
+  }
+  return acc;
+}
+
+// The dual bound of the dense grid in float64, one partial per block: a
+// thread takes a quad of cells, of horizontal edges and of vertical edges a
+// step, the three quads at the same index i, with a grid-stride loop over
+// the cells (the longest of the three spaces).  No name of the pattern
+// grid_round_kernel<.., false or grid_phase_kernel<false: the benchmark's
+// roofline readers match K1 and K2 by those.
+template <int kL>
+__global__ void __launch_bounds__(kCostThreads)
+    grid_bound_kernel(const BoundTerms b, int L, double* partials) {
+  double acc = 0.0;
+  for (long i = 4 * ((long)blockIdx.x * kCostThreads + threadIdx.x); i < b.n[0];
+       i += 4L * gridDim.x * kCostThreads) {
+    acc += bound_quad<kL>(b, i, L);
+  }
+  const double s = block_sum(acc);
+  if (threadIdx.x == 0) partials[blockIdx.x] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -1390,6 +1581,38 @@ int lpmp_grid_primal_cost(const float* u, const float* hm1, const float* hm2, co
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   grid_primal_sum_kernel<<<1, kCostThreads, 0, s>>>(work + 1, n_work - 1, work);
+  return cudaGetLastError();
+}
+
+// The dual bound of the dense state in float64: work[1 .. n_work) takes one
+// partial per block of grid_bound_kernel (n_work - 1 blocks), work[0] their
+// sum, folded by grid_primal_sum_kernel.
+int lpmp_grid_lower_bound(const float* u, const float* hm1, const float* hm2, const float* vm1,
+                          const float* vm2, const float* hc, const float* vc, double* work,
+                          int n_work, int L, int H, int W, int device, void* stream) {
+  if (L < 1 || H < 1 || W < 1 || n_work < 2) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  BoundTerms b{u, {hm1, vm1}, {hm2, vm2}, {hc, vc},
+               {(long)H * W, (long)H * (W - 1), (long)(H - 1) * W}, 0u};
+  const float* const planes[3][3] = {{u, u, u}, {hm1, hm2, hc}, {vm1, vm2, vc}};
+  for (int t = 0; t < 3; ++t) {
+    bool wide = b.n[t] % 4 == 0;
+    for (const float* p : planes[t]) wide = wide && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    b.wide |= (unsigned)wide << t;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = n_work - 1;
+  switch (L) {
+    case 1: grid_bound_kernel<1><<<blocks, kCostThreads, 0, s>>>(b, L, work + 1); break;
+    case 2: grid_bound_kernel<2><<<blocks, kCostThreads, 0, s>>>(b, L, work + 1); break;
+    case 3: grid_bound_kernel<3><<<blocks, kCostThreads, 0, s>>>(b, L, work + 1); break;
+    case 4: grid_bound_kernel<4><<<blocks, kCostThreads, 0, s>>>(b, L, work + 1); break;
+    default: grid_bound_kernel<0><<<blocks, kCostThreads, 0, s>>>(b, L, work + 1); break;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  grid_primal_sum_kernel<<<1, kCostThreads, 0, s>>>(work + 1, blocks, work);
   return cudaGetLastError();
 }
 

@@ -9,7 +9,9 @@ to be 0, but the bound leaves room for a compiler that contracts an FMA).
 The round kernels (K1, K3) are held bit-equal, at the kernel's own geometry
 and at each forced one of ``ROUND_GEOMETRIES``, and so are the rounding
 kernels (``check_round_primal``): state bit-equal, labels equal, the cost
-within ``COST_RTOL``.
+within ``COST_RTOL``; and the bound kernel (``check_lower_bound``): within
+``COST_RTOL``, bit-equal across launches and graph replays, NaN where the
+state holds one.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ import torch
 
 from .config import ReparametrizationMode
 from .models.grid_potts import phase_tuples
-from .ops.grid_kernels import (ROUND_MAX_LABELS, STATE_KEYS, cost_work_size, launch_round_update,
-                               launch_round_update_sharded, phase_update, phase_update_ref,
+from .ops.grid_kernels import (ROUND_MAX_LABELS, STATE_KEYS, bound_work_size, cost_work_size,
+                               launch_round_update, launch_round_update_sharded, lower_bound,
+                               lower_bound_ref, phase_update, phase_update_ref,
                                phase_update_sharded, phase_update_sharded_ref, phase_update_v1,
                                primal_cost, primal_cost_ref, round_phase_ref, round_phase_update,
                                round_update, round_update_ref, round_update_sharded,
@@ -60,7 +63,8 @@ WIDE_LABEL_SHAPES = ((11, 37, 40), (6, 65, 33))
 PHASE_PARAMS = ((2, 2, 0.0), (1, 1, 0.0), (0, 1, 0.0), (2, 0, 0.0),
                 (1, 1, 1.0), (2, 2, 1.0))
 RTOL = 1e-5
-# the rounding's cost against its plain version: float64 sums in two orders
+# the rounding's cost and the dual bound against their plain versions:
+# float64 sums of the same float32 terms in two orders
 COST_RTOL = 1e-12
 # the modes whose four phases the rounding runs (GridPottsModel.round_primal)
 ROUND_MODES = (ReparametrizationMode.anisotropic, ReparametrizationMode.uniform,
@@ -228,6 +232,50 @@ def check_round_primal(device="cuda", shapes=CHECK_SHAPES, seed=0, log=print):
         worst = max(worst, *errs)
         log(f"check round_primal {H}x{W}x{L}: {len(errs)} roundings of four phases, state "
             f"and labels equal, cost rel err {max(errs):.1e}")
+    return worst
+
+
+def check_lower_bound(device="cuda", shapes=CHECK_SHAPES, seed=0, log=print):
+    """The bound kernel (``lower_bound``) against its plain version at
+    ``shapes``, on random and on small-integer (tied) states: within
+    ``COST_RTOL`` relative; bit-equal over two launches and over two replays
+    of a captured call (``capture.Graphs``, one graph a shape); NaN where
+    one of u, hm1, hm2, vm1, vm2 holds a NaN.  Raise AssertionError on the
+    first disagreement; returns the largest relative error.  Per shape and
+    input the wrapper runs 2 + 2 + (5 arrays less the empty ones) times,
+    and once more for the capture's warm-up of each shape."""
+    from .capture import Graphs
+
+    jit = Graphs(device, name="bound check")
+    worst = 0.0
+    for i, (H, W, L) in enumerate(shapes):
+        work = torch.empty(bound_work_size(H, W), dtype=torch.float64, device=device)
+        graphed = jit.jit(lambda s, hc, vc, work=work: lower_bound(s, hc, vc, work),
+                          f"bound {H}x{W}x{L}")
+        errs = []
+        for ties in (False, True):
+            state, hc, vc = random_dense_state(H, W, L, seed + i, ties, device)
+            tag = f"{H}x{W}x{L}{' ties' if ties else ''}"
+            got = [float(lower_bound(state, hc, vc)) for _ in range(2)]
+            got += [float(graphed(state, hc, vc)) for _ in range(2)]
+            ref = float(lower_bound_ref(state, hc, vc))
+            if len(set(got)) != 1:
+                raise AssertionError(f"lower_bound {tag}: launches and replays differ: {got!r}")
+            err = abs(got[0] - ref) / max(abs(ref), 1e-300)
+            if not err <= COST_RTOL:    # also catches NaN
+                raise AssertionError(f"lower_bound {tag}: {got[0]!r} against {ref!r}, rel err "
+                                     f"{err:.3e}")
+            errs.append(err)
+            for k in STATE_KEYS:
+                if not state[k].numel():
+                    continue
+                bad = {**state, k: state[k].clone()}
+                bad[k].view(-1)[bad[k].numel() // 2] = float("nan")
+                if not np.isnan(float(lower_bound(bad, hc, vc))):
+                    raise AssertionError(f"lower_bound {tag}: a NaN in {k} gives a number")
+        worst = max(worst, *errs)
+        log(f"check lower_bound {H}x{W}x{L}: random and tied states, launches and replays "
+            f"bit-equal, rel err {max(errs):.1e}, NaN in each array propagates")
     return worst
 
 

@@ -36,7 +36,11 @@ overwrites; ``load_state`` copies into them.
 ``round_primal`` on a float32 model on the card runs through the rounding
 kernels (``round_phase_update``'s four label-writing phases, then
 ``primal_cost``); CPU and float64 models take the plain ops
-(``_round_impl``), which give the same state and labels.
+(``_round_impl``), which give the same state and labels.  ``lower_bound``
+on a float32 model on the card runs through the bound kernel
+(``ops.grid_kernels.lower_bound``); CPU and float64 models take the plain
+ops (``_lower_bound_impl``), which sum the same float32 terms in another
+order.
 """
 from __future__ import annotations
 
@@ -46,24 +50,12 @@ import torch
 from .. import tracing
 from ..capture import Graphs
 from ..config import ReparametrizationMode, entry_device, real_dtype
-from ..ops.grid_kernels import (STATE_KEYS, cost_work_size, grid_masks, phase_update,
-                                primal_cost, primal_cost_ref, receive, round_phase_update,
-                                round_update, send)
-from ..ops.reductions import two_min
+from ..ops.grid_kernels import (STATE_KEYS, bound_work_size, cost_work_size, grid_masks,
+                                lower_bound, lower_bound_ref, phase_update, primal_cost,
+                                primal_cost_ref, receive, round_phase_update, round_update, send)
 
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 _ANISOTROPIC = (ReparametrizationMode.anisotropic, ReparametrizationMode.anisotropic2)
-
-
-def _potts_min_pair(m1, m2, diff):
-    """min over (x1,x2) of m1[x1] + m2[x2] + diff*[x1 != x2]; labels axis 0."""
-    diag = torch.amin(m1 + m2, dim=0)
-    if m1.shape[0] == 1:
-        return diag
-    a1, s1, i1 = two_min(m1, axis=0)
-    a2, s2, i2 = two_min(m2, axis=0)
-    off = torch.where(i1 != i2, a1 + a2, torch.minimum(a1 + s2, s1 + a2)) + diff
-    return torch.minimum(diag, off)
 
 
 class GridPottsModel:
@@ -93,13 +85,14 @@ class GridPottsModel:
         self.black, self.deg = grid_masks(H, W, self.device, self.dtype)
         self._scratch_sets = None
         self._round_bufs = None
+        self._bound_work = None
         self.jit = Graphs(self.device, enabled=use_jit, name="GridPottsModel")
         self.state = self.jit.adopt(self.state)
         self._iterate_fn = self.jit.jit(
             lambda s, mode: (self._iterate_impl(s, self._mode_params(mode)), None),
             "iterate", donate=(0,))
         self._fast_fn = self.jit.jit(self._run_fast_any, "run_fast", donate=(0,))
-        self._lb_fn = self.jit.jit(self._lower_bound_impl, "lower bound")
+        self._lb_fn = self.jit.jit(self._lower_bound_any, "lower bound")
         self._round_fn = self.jit.jit(self._round_any, "round_primal", donate=(0,))
 
     def _tensor(self, a):
@@ -224,12 +217,19 @@ class GridPottsModel:
         return self._scratch_sets
 
     # ------------------------------------------------------------------
+    def _lower_bound_any(self, s):
+        """The dual bound of ``s``: through the bound kernel for a float32
+        model on the card, into a work buffer of the model's made at first
+        use (under capture: in the warm-up), else the plain ops."""
+        if self.device.type == "cuda" and self.dtype == torch.float32:
+            if self._bound_work is None:
+                self._bound_work = torch.empty(bound_work_size(self.H, self.W),
+                                               dtype=torch.float64, device=self.device)
+            return lower_bound(s, self.hc, self.vc, self._bound_work)
+        return self._lower_bound_impl(s)
+
     def _lower_bound_impl(self, s):
-        f64 = torch.float64
-        lb = torch.sum(torch.amin(s["u"], dim=0), dtype=f64)
-        lb += torch.sum(_potts_min_pair(s["hm1"], s["hm2"], self.hc), dtype=f64)
-        lb += torch.sum(_potts_min_pair(s["vm1"], s["vm2"], self.vc), dtype=f64)
-        return lb
+        return lower_bound_ref(s, self.hc, self.vc)
 
     def _round_any(self, s, mode):
         """(new state, (labels, ub)) of one rounding pass from ``s``: through

@@ -32,6 +32,8 @@ _SIGNATURES = {
     "lpmp_grid_round_phase_update": [_P] * 13 + [_I, _I, _I, _I, _I, _F, _I, _P],
     # 7 input pointers, labels, work, n_work, L, H, W, device, stream
     "lpmp_grid_primal_cost": [_P] * 9 + [_I, _I, _I, _I, _I, _P],
+    # 7 input pointers, work, n_work, L, H, W, device, stream
+    "lpmp_grid_lower_bound": [_P] * 8 + [_I, _I, _I, _I, _I, _P],
     # ... n_rounds, tile_rows, tile_cols, device, stream
     "lpmp_grid_round_update": [_P] * 12 + [_I, _I, _I, _I, _I, _I, _I, _P],
     # array of 26 pointers (21 inputs, 5 outputs), array of 14 slab label

@@ -40,9 +40,11 @@ Colour, degree and edges come from the global row and the global ``H``.
 on one shard's window.  ``round_phase_update`` and ``primal_cost`` replace
 no Pallas kernel: they are the grid model's primal rounding (a phase that
 also writes each updated cell's argmin label, and the labelling's float64
-cost), which the JAX package writes as ``jnp`` ops.  All are bound by
-device-memory bandwidth: a phase reads and writes the five state arrays and
-reads the two cost arrays, with a few dozen flops per cell and label.  The
+cost), which the JAX package writes as ``jnp`` ops; nor does
+``lower_bound``, the grid model's dual bound in float64 (``jnp`` ops in the
+JAX package too), which reads the state and the costs once.  All are bound
+by device-memory bandwidth: a phase reads and writes the five state arrays
+and reads the two cost arrays, with a few dozen flops per cell and label.  The
 round kernels fuse ``2 * n_rounds`` phases into one pass through shared
 memory, so the bytes per iteration fall by that factor (design note in
 ``csrc/grid_potts.cu``).
@@ -52,8 +54,8 @@ CUDA tensors (float32 only, like the Pallas kernels); anything else raises.
 Each CUDA route counts its kernel launches under the wrapper's name in
 ``tracing``'s ``launches`` (``launch_round_update`` and
 ``launch_round_update_sharded`` under ``round_update`` and
-``round_update_sharded``, ``primal_cost`` two a call); the plain versions
-count nothing.
+``round_update_sharded``, ``primal_cost`` and ``lower_bound`` two a call);
+the plain versions count nothing.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ import torch.nn.functional as F
 
 from .. import tracing
 from . import _cuda_build
-from .reductions import min_except
+from .reductions import min_except, two_min
 
 STATE_KEYS = ("u", "hm1", "hm2", "vm1", "vm2")
 
@@ -182,6 +184,28 @@ def primal_cost_ref(state, hc, vc, labels):
     ub += torch.sum(pick(state["vm2"], xb), dtype=f64)
     ub += torch.sum(torch.where(xt != xb, vc, torch.zeros_like(vc)), dtype=f64)
     return ub
+
+
+def _potts_min_pair(m1, m2, diff):
+    """min over (x1,x2) of m1[x1] + m2[x2] + diff*[x1 != x2]; labels axis 0."""
+    diag = torch.amin(m1 + m2, dim=0)
+    if m1.shape[0] == 1:
+        return diag
+    a1, s1, i1 = two_min(m1, axis=0)
+    a2, s2, i2 = two_min(m2, axis=0)
+    off = torch.where(i1 != i2, a1 + a2, torch.minimum(a1 + s2, s1 + a2)) + diff
+    return torch.minimum(diag, off)
+
+
+def lower_bound_ref(state, hc, vc):
+    """The dual bound of the dense ``state``, plain torch: a float64 0-dim
+    tensor, the sum of the cells' minima over the labels and of each edge's
+    Potts pair-min (``_potts_min_pair``), three float64 sums."""
+    f64 = torch.float64
+    lb = torch.sum(torch.amin(state["u"], dim=0), dtype=f64)
+    lb += torch.sum(_potts_min_pair(state["hm1"], state["hm2"], hc), dtype=f64)
+    lb += torch.sum(_potts_min_pair(state["vm1"], state["vm2"], vc), dtype=f64)
+    return lb
 
 
 def round_update_ref(state, hc, vc, n_rounds: int = 1):
@@ -308,8 +332,9 @@ def _device_of(state, hc, vc) -> torch.device:
     return _device_of_tensors((*(state[k] for k in STATE_KEYS), hc, vc))
 
 
-def _check_cuda_args(state, hc, vc):
-    """Shapes (L, H, W) of a valid float32 contiguous dense state, or raise."""
+def _check_cuda_args(state, hc, vc, cuda: bool = True):
+    """Shapes (L, H, W) of a valid dense state, or raise; for a CUDA launch
+    (``cuda``) also float32 and contiguous."""
     u = state["u"]
     if u.ndim != 3:
         raise ValueError(f"u must be [L, H, W], got shape {tuple(u.shape)}")
@@ -317,13 +342,12 @@ def _check_cuda_args(state, hc, vc):
     want = {"u": (L, H, W), "hm1": (L, H, W - 1), "hm2": (L, H, W - 1),
             "vm1": (L, H - 1, W), "vm2": (L, H - 1, W),
             "hc": (H, W - 1), "vc": (H - 1, W)}
-    tensors = {**{k: state[k] for k in STATE_KEYS}, "hc": hc, "vc": vc}
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
+    for name, t in _dense_tensors(state, hc, vc).items():
+        if cuda and t.dtype != torch.float32:
             raise TypeError(f"the CUDA grid kernels take float32; {name} is {t.dtype}")
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want[name]}")
-        if not t.is_contiguous():
+        if cuda and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return L, H, W
 
@@ -645,12 +669,51 @@ def primal_cost(state, hc, vc, labels, work=None):
         return primal_cost_ref(state, hc, vc, labels)
     L, H, W = _check_cuda_args(state, hc, vc)
     n = cost_work_size(H, W)
-    if work is None:
-        work = torch.empty(n, dtype=torch.float64, device=labels.device)
-    elif work.dtype != torch.float64 or tuple(work.shape) != (n,) or not work.is_contiguous():
-        raise ValueError(f"work must be a contiguous float64 tensor of shape {(n,)}")
+    work = _work_buffer(work, n, dev)
     ptrs = [state[k].data_ptr() for k in STATE_KEYS]
     ptrs += [hc.data_ptr(), vc.data_ptr(), labels.data_ptr(), work.data_ptr()]
     _run("lpmp_grid_primal_cost", dev, ptrs, None, n, L, H, W)
     tracing.launch({"primal_cost": 2})
+    return work[0]
+
+
+def _work_buffer(work, n: int, dev):
+    """``work``, a contiguous float64 tensor of shape (n,), or raise; a new
+    one on ``dev`` where None."""
+    if work is None:
+        return torch.empty(n, dtype=torch.float64, device=dev)
+    if work.dtype != torch.float64 or tuple(work.shape) != (n,) or not work.is_contiguous():
+        raise ValueError(f"work must be a contiguous float64 tensor of shape {(n,)}")
+    return work
+
+
+def bound_work_size(H: int, W: int) -> int:
+    """float64 elements of ``lower_bound``'s work buffer on the card: the
+    bound, then one partial per block of its first kernel, which takes
+    ``cost_work_size``'s blocks (a thread takes four cells and four edges of
+    each direction a step)."""
+    return cost_work_size(H, W)
+
+
+def lower_bound(state, hc, vc, work=None):
+    """The dual bound of the dense ``state`` in float64: a 0-dim tensor.
+    On the card two kernels, float64 partials per block into ``work``
+    (float64 [``bound_work_size(H, W)``]; made here where None, so a caller
+    that captures the call passes its own, made at the first, uncaptured
+    call) and their sum in a fixed order, so a state gives the same bound
+    bit for bit every time; the result is ``work[0]``.  They add the same
+    float32 terms as the plain version (``lower_bound_ref``, the CPU route)
+    in another order.  A NaN in the state makes the bound NaN."""
+    given = () if work is None else (work,)
+    dev = _device_of_tensors((*_dense_tensors(state, hc, vc).values(), *given))
+    L, H, W = _check_cuda_args(state, hc, vc, cuda=dev.type == "cuda")
+    n = bound_work_size(H, W)
+    if dev.type == "cpu":
+        if work is not None:        # refused here as on the card
+            _work_buffer(work, n, dev)
+        return lower_bound_ref(state, hc, vc)
+    work = _work_buffer(work, n, dev)
+    ptrs = [t.data_ptr() for t in _dense_tensors(state, hc, vc).values()] + [work.data_ptr()]
+    _run("lpmp_grid_lower_bound", dev, ptrs, None, n, L, H, W)
+    tracing.launch({"lower_bound": 2})
     return work[0]

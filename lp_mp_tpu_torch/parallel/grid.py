@@ -38,9 +38,10 @@ import torch
 
 from ..capture import Graphs
 from ..config import ReparametrizationMode, entry_device, real_dtype
-from ..models.grid_potts import _NUMPY_DTYPES, _potts_min_pair
-from ..ops.grid_kernels import (SLAB, STATE_KEYS, _write_into, phase_update_sharded,
-                                phase_update_sharded_ref, round_update_sharded, sharded_phase)
+from ..models.grid_potts import _NUMPY_DTYPES
+from ..ops.grid_kernels import (SLAB, STATE_KEYS, _potts_min_pair, _write_into,
+                                phase_update_sharded, phase_update_sharded_ref,
+                                round_update_sharded, sharded_phase)
 
 _ANISOTROPIC = (ReparametrizationMode.anisotropic, ReparametrizationMode.anisotropic2)
 

@@ -26,7 +26,10 @@ On one NVIDIA GPU, at the main path's 1000x1000 grid with 4 labels:
 - the round kernels with two rounds a launch: K1 (``round_update``) and K3
   (``round_update_sharded``) on the window of 1 shard and on one window of
   4 shards, each with its registers (ptxas), shared memory, threads and
-  blocks per SM (the occupancy those allow on the card).
+  blocks per SM (the occupancy those allow on the card);
+- the dual bound: the bound kernel (``lower_bound``, its two kernels, where
+  the package has it) and the model's plain bound (``_lower_bound_impl``),
+  each captured.
 
 A kernel's time is one replay of a CUDA graph that holds ``LAUNCHES``
 back-to-back launches, each on the state the one before wrote, over CUDA
@@ -295,6 +298,33 @@ def round_primal_times(pkg) -> dict:
     return out
 
 
+def bound_times(pkg) -> dict:
+    """The dual bound at the main path's grid, by graph replay as
+    ``phase_times``: {"lower_bound": {"us", "bound_us", "share", "bound_by",
+    "launches", "plain_us"}} for the bound kernel (its two kernels a call,
+    where the package has it; the bound counts the state and the costs read
+    once), and {"plain": {"us"}}, the model's plain bound, always."""
+    import torch
+    gk = pkg.ops.grid_kernels
+    u, hc_np, vc_np = pkg.random_grid(H, W, L, seed=SEED)
+    m = pkg.GridPottsModel(u, hc_np, vc_np, device="cuda", dtype=torch.float32)
+    state = {k: v.clone() for k, v in m.run_fast(3, "uniform", kernel="cuda").state.items()}
+    hc, vc = m.hc, m.vc
+    fns = {"plain": captured_chain(lambda s: (m._lower_bound_impl(s), s)[1], state)}
+    if hasattr(gk, "lower_bound"):
+        work = torch.empty(gk.bound_work_size(H, W), dtype=torch.float64, device="cuda")
+        fns["lower_bound"] = captured_chain(lambda s: (gk.lower_bound(s, hc, vc, work), s)[1],
+                                            state)
+    t = in_turns(fns)
+    out = {"plain": {"us": t["plain"] * 1e3 / LAUNCHES}}
+    if "lower_bound" in t:
+        out["lower_bound"] = dict(_entry(t["lower_bound"], (nbytes([*state.values(), hc, vc]), 0),
+                                         0), launches=2, plain_us=out["plain"]["us"])
+    del fns, m
+    gc.collect()
+    return out
+
+
 def round_registers(ptxas) -> dict:
     """{(n_rounds, sharded, label count or None, 16-byte copies or None):
     registers} of the round kernels from the build's ptxas lines (the
@@ -431,6 +461,7 @@ def main() -> None:
     if hasattr(pkg.ops.grid_kernels, "round_phase_update"):
         rec["rounding"] = round_primal_times(pkg)
     rec["rounds"] = round_times(pkg, ptxas)
+    rec["bound"] = bound_times(pkg)
     rec["seconds"] = time.perf_counter() - t0
     tag = os.path.dirname(os.path.dirname(pkg.__file__))
     for name, (ins, bra) in rec["sass"].items():
@@ -449,6 +480,8 @@ def main() -> None:
               f"{v['bound_us']:.1f}), {v['registers']} registers, {v['smem']} B of shared memory, "
               f"{v['threads']} threads, {v['blocks_per_sm']} blocks per SM, at {H}x{W} L={L} "
               f"on {card}")
+    for line in bound_lines(rec["bound"]):
+        print(f"{tag} {line} on {card}")
     print(json.dumps(rec))
 
 
@@ -461,6 +494,17 @@ def rounding_lines(rec: dict) -> list:
         v = rec["round_primal"]
         lines.append(f"round_primal, one captured pass: {v['ms'] * 1e3:.1f} us on the kernels, "
                      f"{v['plain_ms'] * 1e3:.1f} us on the plain ops")
+    return lines
+
+
+def bound_lines(rec: dict) -> list:
+    """``bound_times``'s record as lines of text."""
+    lines = [f"plain bound (captured): {rec['plain']['us']:.1f} us a call, at {H}x{W} L={L}"]
+    if "lower_bound" in rec:
+        v = rec["lower_bound"]
+        lines.append(f"lower_bound: {v['us']:.1f} us a call of {v['launches']} launches "
+                     f"({100 * v['share']:.0f} % of {v['bound_us']:.1f}), plain "
+                     f"{v['plain_us']:.1f} us, at {H}x{W} L={L}")
     return lines
 
 

@@ -15,8 +15,8 @@ import chip_smoke
 from lp_mp_tpu_torch import GridPottsModel, random_grid, tracing
 from lp_mp_tpu_torch.kernel_check import (CHECK_SHAPES, COST_RTOL, ROUND_GEOMETRIES, ROUND_MODES,
                                           RTOL, WIDE_LABEL_SHAPES, check_grid_kernels,
-                                          check_phase_v1, check_replays, check_round_primal,
-                                          random_dense_state)
+                                          check_lower_bound, check_phase_v1, check_replays,
+                                          check_round_primal, random_dense_state)
 from lp_mp_tpu_torch.ops import grid_kernels as gk
 
 pytestmark = pytest.mark.gpu
@@ -183,3 +183,48 @@ def test_primal_cost_of_a_label_out_of_range_is_nan(cuda):
     for bad in (3, -1):
         labels[4, 5] = bad
         assert np.isnan(float(gk.primal_cost(state, hc, vc, labels)))
+
+
+def test_bound_kernel_matches_the_plain_bound(cuda):
+    """Every check shape and the wide label counts, random and tied states:
+    within COST_RTOL of ``lower_bound_ref``, bit-equal across launches and
+    replays, NaN where the state holds one; the launches are the check's."""
+    shapes = CHECK_SHAPES + WIDE_LABEL_SHAPES
+    before = tracing.counters()["launches"]
+    assert check_lower_bound(cuda, shapes=shapes, log=lambda line: None) <= COST_RTOL
+    # per shape: per input two launches, two replays and one NaN per non-empty
+    # array; one warm-up of the shape's capture
+    calls = sum(2 * (4 + 1 + 2 * (W > 1) + 2 * (H > 1)) + 1 for H, W, _ in shapes)
+    assert tracing.counters()["launches"] - before == Counter(lower_bound=2 * calls)
+
+
+@pytest.mark.parametrize("use_jit", [True, False], ids=["captured", "eager"])
+def test_float32_model_bounds_through_the_kernel(cuda, use_jit):
+    """A float32 model on the card takes its bound from the kernel, two
+    launches a bound: a captured bound replayed n times adds exactly 2n, and
+    its value equals the eager model's and, within COST_RTOL, the plain
+    bound's of the same state."""
+    u, hc, vc = random_grid(50, 70, 4, seed=5)
+    m = GridPottsModel(u, hc, vc, device=cuda, dtype=torch.float32, use_jit=use_jit)
+    eager = GridPottsModel(u, hc, vc, device=cuda, dtype=torch.float32, use_jit=False)
+    m.run_fast(3, "uniform", kernel="cuda")
+    eager.run_fast(3, "uniform", kernel="cuda")
+    first = m.lower_bound()          # the capture and its warm-up, where captured
+    n = 5
+    before = tracing.counters()["launches"]
+    got = [m.lower_bound() for _ in range(n)]
+    assert tracing.counters()["launches"] - before == Counter(lower_bound=2 * n)
+    plain = float(m._lower_bound_impl(m.state))
+    assert got == [first] * n and first == eager.lower_bound()
+    assert abs(first - plain) <= COST_RTOL * abs(plain)
+
+
+def test_float64_model_bounds_on_the_plain_ops(cuda):
+    """A float64 model on the card keeps the plain bound: no kernel launches."""
+    u, hc, vc = random_grid(50, 70, 4, seed=5)
+    m = GridPottsModel(u, hc, vc, device=cuda, dtype=torch.float64).run_fast(
+        3, "uniform", kernel="torch")
+    before = tracing.counters()["launches"]
+    lb = m.lower_bound()
+    assert tracing.counters()["launches"] == before
+    assert lb == float(m._lower_bound_impl(m.state))

@@ -281,3 +281,88 @@ def test_rounding_wrappers_refuse_what_no_route_takes():
     assert gk.cost_work_size(5, 6) == 2
     assert gk.cost_work_size(1000, 1000) == 1 + 977
     assert gk.cost_work_size(4000, 4000) == 1 + gk.COST_MAX_BLOCKS
+
+
+BOUND_SHAPES = [(8, 8, 4), (9, 11, 1), (9, 1, 3), (1, 60, 4), (7, 2, 4), (13, 57, 5),
+                (11, 37, 40)]
+
+
+@pytest.mark.parametrize("H,W,L", BOUND_SHAPES)
+@pytest.mark.parametrize("ties", [False, True], ids=["normal", "ties"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_lower_bound_wrapper_is_the_plain_bound(H, W, L, ties, dtype):
+    """On CPU tensors ``lower_bound`` is ``lower_bound_ref``, the model's
+    plain bound (``_lower_bound_impl``) bit for bit, with or without a work
+    buffer, and launches nothing; a CPU model's ``lower_bound()`` gives the
+    same value, captured or not."""
+    from lp_mp_tpu_torch import GridPottsModel
+    state, hc, vc = random_dense_state(H, W, L, seed=H + W + L, ties=ties, dtype=dtype)
+    before = tracing.counters()["launches"]
+    work = torch.empty(gk.bound_work_size(H, W), dtype=torch.float64)
+    for use_jit in (True, False):
+        m = GridPottsModel(np.moveaxis(state["u"].numpy(), 0, -1), hc.numpy(), vc.numpy(),
+                           device="cpu", dtype=dtype, use_jit=use_jit).load_state(state)
+        ref = m._lower_bound_impl(state)
+        assert ref.dtype == torch.float64 and ref.ndim == 0
+        for got in (gk.lower_bound(state, hc, vc), gk.lower_bound(state, hc, vc, work)):
+            assert got.dtype == torch.float64 and float(got) == float(ref)
+        assert m.lower_bound() == float(ref)
+    assert tracing.counters()["launches"] == before
+
+
+def test_lower_bound_plain_version_is_the_pre_kernel_arithmetic():
+    """``lower_bound_ref`` sums what the model summed before the kernel: the
+    cells' minima and ``_potts_min_pair`` of each direction, in float64."""
+    state, hc, vc = random_dense_state(12, 9, 3, seed=4, ties=True)
+    f64 = torch.float64
+    want = torch.sum(torch.amin(state["u"], dim=0), dtype=f64)
+    want += torch.sum(gk._potts_min_pair(state["hm1"], state["hm2"], hc), dtype=f64)
+    want += torch.sum(gk._potts_min_pair(state["vm1"], state["vm2"], vc), dtype=f64)
+    assert float(gk.lower_bound_ref(state, hc, vc)) == float(want)
+    state["vm2"][1, 2, 3] = float("nan")
+    assert np.isnan(float(gk.lower_bound(state, hc, vc)))
+
+
+def _bad_bound_args(case):
+    state, hc, vc = random_dense_state(5, 6, 2, seed=0)
+    n = gk.bound_work_size(5, 6)
+    work = torch.empty(n, dtype=torch.float64)
+    if case == "work dtype":
+        work = work.float()
+    elif case == "work shape":
+        work = torch.empty(n + 1, dtype=torch.float64)
+    elif case == "work strided":
+        work = torch.empty(2 * n, dtype=torch.float64)[::2]
+    elif case == "slot shape":
+        state = {**state, "hm1": state["hm1"][:, :, :-1]}
+    elif case == "cost shape":
+        hc = hc[:-1]
+    elif case == "u rank":
+        state = {**state, "u": state["u"][0]}
+    elif case == "devices":
+        work = work.to("meta")
+    return state, hc, vc, work
+
+
+@pytest.mark.parametrize("case,error", [
+    ("work dtype", ValueError), ("work shape", ValueError), ("work strided", ValueError),
+    ("slot shape", ValueError), ("cost shape", ValueError), ("u rank", ValueError),
+    ("devices", ValueError)])
+def test_lower_bound_refuses_bad_arguments_before_launching(case, error):
+    """A bad work buffer, a state or cost of another shape than the grid's,
+    or inputs on several devices are refused on the CPU route as on the
+    card's, and nothing is counted."""
+    before = tracing.counters()["launches"]
+    state, hc, vc, work = _bad_bound_args(case)
+    with pytest.raises(error):
+        gk.lower_bound(state, hc, vc, work)
+    assert tracing.counters()["launches"] == before
+
+
+def test_bound_work_size():
+    """One float64 for the bound, then one partial per block of 1024 cells,
+    at most COST_MAX_BLOCKS blocks: the cost pass's blocks."""
+    assert gk.bound_work_size(5, 6) == 2
+    assert gk.bound_work_size(1000, 1000) == 1 + 977
+    assert gk.bound_work_size(4000, 4000) == 1 + gk.COST_MAX_BLOCKS
+    assert all(gk.bound_work_size(h, w) == gk.cost_work_size(h, w) for h, w, _ in CHECK_SHAPES)

@@ -102,6 +102,44 @@ def test_round_primal_check_catches_a_wrong_label(no_sync, monkeypatch):
         kc.check_round_primal("cpu", shapes=((6, 7, 3),), log=lambda line: None)
 
 
+@pytest.mark.parametrize("shapes", [kc.WIDE_LABEL_SHAPES, ((10, 63, 4), (9, 1, 3), (1, 60, 4)),
+                                    ((9, 11, 1), (23, 26, 8))],
+                         ids=["wide labels", "edges of the grid", "one and eight labels"])
+def test_lower_bound_check_covers_every_shape(no_sync, shapes):
+    """``check_lower_bound`` holds the bound wrapper against its plain
+    version on random and tied states, over launches and replays, with a
+    NaN in each array, one log line per shape; on the CPU both sides are
+    the plain version, so the error is 0 and nothing launches."""
+    before = tracing.counters()["launches"]
+    logs = []
+    assert kc.check_lower_bound("cpu", shapes=shapes, log=logs.append) == 0.0
+    assert len(logs) == len(shapes)
+    assert all("bit-equal" in line and "NaN" in line for line in logs)
+    assert tracing.counters()["launches"] == before
+
+
+@pytest.mark.parametrize("fault", ["off by 1e-11", "drops NaN", "differs on replay"])
+def test_lower_bound_check_catches_a_wrong_bound(no_sync, monkeypatch, fault):
+    """A bound 1e-11 relative off, one that turns a NaN into a number, or
+    one that changes between calls fails the check."""
+    real = gk.lower_bound
+    calls = []
+
+    def wrong(state, hc, vc, work=None):
+        out = real(state, hc, vc, work)
+        calls.append(1)
+        if fault == "off by 1e-11":
+            return out * (1.0 + 1e-11)
+        if fault == "drops NaN":
+            return torch.nan_to_num(out)
+        return out + (len(calls) % 2) * 1e-9 * out.abs()
+
+    monkeypatch.setattr(kc, "lower_bound", wrong)
+    match = {"off by 1e-11": "rel err", "drops NaN": "NaN", "differs on replay": "differ"}[fault]
+    with pytest.raises(AssertionError, match=match):
+        kc.check_lower_bound("cpu", shapes=((6, 7, 3),), log=lambda line: None)
+
+
 def test_phase_bench_imports_no_jax():
     """The kernel timer stays free of JAX, and without a card its command
     exits non-zero before timing anything."""
